@@ -1,0 +1,334 @@
+#!/usr/bin/env python3
+"""Smoke run of metrics_tpu_torch on one CUDA card.
+
+    python3 chip_smoke.py
+
+1. checks for a card and prints its name and power limit;
+2. builds the CUDA kernels from ``metrics_tpu_torch/csrc``;
+3. holds every kernel against its plain PyTorch version on the card (bit for
+   bit) and times both at the main path's shapes;
+4. drives the flagship collection, ``Accuracy`` + macro ``StatScores`` over
+   10 classes, for 16 ``forward`` steps of [2048, 10] probabilities, then
+   ``compute()``, and holds it against the same run on the CPU;
+5. drives the binned collection, ``BinnedAveragePrecision`` +
+   ``BinnedRecallAtFixedPrecision`` (10 classes, 100 thresholds), the same
+   way, and checks that every update went through the CUDA kernel;
+6. prints one JSON line describing the kernels, then, as the last line,
+   ``{"ok": true, "device": {...}}``.
+
+Any failed check raises, and the script then exits non-zero without the last
+line. Without CUDA it exits with code 2 and prints no result.
+"""
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BATCH, NUM_CLASSES, STEPS, THRESHOLDS = 2048, 10, 16, 100
+# bound_ms: NVIDIA H100 SXM data sheet, dense, at the 700 W limit
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# the five shapes of tests/ops/test_pallas_binned.py, then the main path's
+# binned update and the JAX package's binned benchmark shape
+TEST_SHAPES = [(37, 3, 100), (256, 10, 5), (5, 1, 1), (1000, 17, 130), (64, 130, 20)]
+SLICE_SHAPES = [(BATCH, NUM_CLASSES, THRESHOLDS), (65536, 8, 128)]
+VALUE_ATOL = 1e-6  # float32 values reduced in another order on the card
+
+
+def _phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+def _binned_inputs(n, c, t, seed, device, unsorted=False, target_dtype=np.float32):
+    """Preds with exact-threshold ties and NaNs planted, {0,1} targets."""
+    from metrics_tpu_torch.utils.data import _linspace_like_reference
+
+    rng = np.random.RandomState(seed)
+    thresholds = _linspace_like_reference(t).numpy()
+    preds = rng.rand(n, c).astype(np.float32)
+    if n > 4:
+        k = min(n // 4, t)
+        preds[:k] = thresholds[rng.randint(0, t, (k, c))]
+        preds[k, 0] = np.nan
+    if unsorted:
+        thresholds = np.concatenate([rng.permutation(thresholds), thresholds[:3]])
+    target = (rng.rand(n, c) > 0.5).astype(target_dtype)
+    return (torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device),
+            torch.from_numpy(thresholds).to(device))
+
+
+def _time_ms(fn, reps: int = 15, inner: int = 20) -> float:
+    """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
+    by CUDA events, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return float(np.median(times))
+
+
+def _launch_only(preds, target, thr):
+    """The bare kernel launch on preallocated counts (no allocation, no FP/FN
+    forming), to separate the kernel's time from its wrapper's."""
+    from metrics_tpu_torch.ops import _build, binned_stats
+
+    lib = _build.load_library()
+    n, c = preds.shape
+    t = thr.numel()
+    counts = torch.zeros(2 * c * t + c, dtype=torch.int32, device=preds.device)
+    args = (preds.data_ptr(), target.data_ptr(), binned_stats._TARGET_KINDS[target.dtype], thr.data_ptr(),
+            n, c, t, binned_stats._rows_per_block(n, c, preds.device),
+            counts.data_ptr(), counts[c * t:].data_ptr(), counts[2 * c * t:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        err = lib.binned_stats_launch(*args)
+        assert err == 0, f"CUDA error {err}"
+
+    return launch
+
+
+def _bound(n: int, c: int, t: int):
+    """Least time for the binned counts: each input read once (float32 preds
+    and targets, thresholds), each output written once (three float32 [C, T]),
+    one float32 compare per (n, c, t)."""
+    nbytes = 4 * (2 * n * c + t + 3 * c * t)
+    ops = n * c * t
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _run_collection(make, batches, device):
+    """``STEPS`` forward calls, then ``compute()``; returns the collection,
+    its values, the host-clock ms of each step and of the compute."""
+    mc = make(device)
+    preds, target = batches
+    preds, target = preds.to(device), target.to(device)
+    torch.cuda.synchronize()
+    step_ms = []
+    for i in range(STEPS):
+        t0 = time.perf_counter()
+        mc(preds[i], target[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    values = mc.compute()
+    torch.cuda.synchronize()
+    return mc, values, step_ms, (time.perf_counter() - t0) * 1e3
+
+
+def _profile(make, batches, device, step_ms, steps=4):
+    """Where a steady-state step's time goes: the device time of the kernels
+    a step launches, against the unprofiled host-clock step ``step_ms``, and
+    the host calls that take longest (these are inflated by the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mc = make(device)
+    preds, target = batches[0].to(device), batches[1].to(device)
+    mc(preds[0], target[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(1, steps + 1):
+            mc(preds[i], target[i])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        print("profile: the profiler recorded no device activity (device busy share not measured)")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels) / steps
+    print(f"device busy {busy_us:.2f} us/step in {len(kernels) / steps:.1f} kernels/step; the unprofiled step "
+          f"takes {step_ms * 1e3:.2f} us, so the device is idle {100 * (1 - busy_us / (step_ms * 1e3)):.2f}% of it")
+    by_name = {}
+    for e in kernels:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"  device {t / steps:8.2f} us/step {n / steps:5.1f}/step  {name[:90]}")
+    rows = [r for r in prof.key_averages() if r.key != "Activity Buffer Request"]
+    for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:6]:
+        print(f"  host   {r.self_cpu_time_total / steps:8.2f} us/step {r.count / steps:5.1f}/step  {r.key[:90]}")
+
+
+def _to_cpu(v):
+    if isinstance(v, (list, tuple)):
+        return [_to_cpu(x) for x in v]
+    return v.detach().cpu()
+
+
+def _check_values(name, got, want):
+    got, want = _to_cpu(got), _to_cpu(want)
+    if isinstance(want, list):
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            _check_values(name, g, w)
+        return
+    assert got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}"
+    assert bool(torch.isfinite(got).all()), f"{name}: non-finite values {got}"
+    if got.is_floating_point():
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        assert err <= VALUE_ATOL, f"{name}: max abs err {err} > {VALUE_ATOL}"
+    else:
+        assert torch.equal(got, want), f"{name}: {got} vs {want}"
+
+
+def _check_states(mc_gpu, mc_cpu):
+    for (key, m_gpu), (_, m_cpu) in zip(mc_gpu.items(), mc_cpu.items()):
+        for name, v in m_gpu._state.items():
+            w = m_cpu._state[name]
+            assert torch.equal(v.cpu(), w), f"state {key}.{name} differs between the card and the CPU"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
+        return 2
+
+    from metrics_tpu_torch import (
+        Accuracy,
+        BinnedAveragePrecision,
+        BinnedRecallAtFixedPrecision,
+        MetricCollection,
+        StatScores,
+    )
+    from metrics_tpu_torch.ops import _build, binned_stats
+
+    _phase("device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}; "
+          f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} cudnn={torch.backends.cudnn.allow_tf32}")
+    device = torch.device("cuda", 0)
+
+    _phase("build")
+    t0 = time.perf_counter()
+    _build.load_library()
+    print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
+          f"(nvcc {_build.last_build['seconds']:.2f} s)")
+    print(_build.last_build["log"].strip())
+
+    _phase("kernel vs plain on the card")
+    max_err = 0.0
+    cases = [(s, False, np.float32) for s in TEST_SHAPES + SLICE_SHAPES]
+    cases += [((300, 7, 50), True, np.float32), ((300, 7, 50), False, np.int64), ((300, 7, 50), False, np.int32)]
+    for seed, ((n, c, t), unsorted, target_dtype) in enumerate(cases):
+        preds, target, thr = _binned_inputs(n, c, t, seed, device, unsorted=unsorted, target_dtype=target_dtype)
+        got = binned_stats.binned_stat_scores(preds, target, thr)
+        want = binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False)
+        torch.cuda.synchronize()
+        for g, w, what in zip(got, want, ("tp", "fp", "fn")):
+            err = float((g - w).abs().max())
+            max_err = max(max_err, err)
+            assert torch.equal(g, w), f"kernel {what} differs from the compare form at {(n, c, t)}: {err}"
+        print(f"shape N={n} C={c} T={thr.numel()}{' unsorted' if unsorted else ''} "
+              f"target {target.dtype}: bit-exact")
+
+    timings = {}
+    for n, c, t in SLICE_SHAPES:
+        preds, target, thr = _binned_inputs(n, c, t, 0, device)
+        ms = _time_ms(lambda: binned_stats.binned_stat_scores(preds, target, thr))
+        launch_ms = _time_ms(_launch_only(preds, target, thr))
+        plain_ms = _time_ms(lambda: binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False))
+        bound_ms, bound_by = _bound(n, c, t)
+        timings[(n, c, t)] = (ms, plain_ms, bound_ms, bound_by, launch_ms)
+        print(f"binned_stats N={n} C={c} T={t}: wrapper {ms:.5f} ms (bare launch {launch_ms:.5f} ms), "
+              f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
+              "no single PyTorch call computes this")
+
+    _phase("flagship collection: Accuracy + StatScores(macro)")
+    rng = np.random.RandomState(0)
+    probs = torch.from_numpy(rng.rand(STEPS, BATCH, NUM_CLASSES).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, NUM_CLASSES, (STEPS, BATCH)))
+
+    def flagship(dev):
+        return MetricCollection({
+            "acc": Accuracy(num_classes=NUM_CLASSES, device=dev),
+            "stats": StatScores(reduce="macro", num_classes=NUM_CLASSES, device=dev),
+        })
+
+    _run_collection(flagship, (probs, labels), device)  # warm-up: loads the CUDA modules
+    mc_gpu, v_gpu, step_ms, compute_ms = _run_collection(flagship, (probs, labels), device)
+    mc_cpu, v_cpu, _, _ = _run_collection(flagship, (probs, labels), "cpu")
+    _check_states(mc_gpu, mc_cpu)
+    for key in v_cpu:
+        _check_values(key, v_gpu[key], v_cpu[key])
+    assert v_gpu["stats"].shape == (NUM_CLASSES, 5)
+    print(f"forward step on the card (host clock, after a warm-up run): median {np.median(step_ms):.4f} ms, "
+          f"max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; acc {float(v_gpu['acc']):.6f}; "
+          "states equal to the CPU run, values within 1e-6")
+    flagship_step_ms = float(np.median(step_ms))
+
+    _phase("binned collection: BinnedAveragePrecision + BinnedRecallAtFixedPrecision")
+
+    def binned(dev):
+        return MetricCollection({
+            "ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev),
+            "rfp": BinnedRecallAtFixedPrecision(
+                num_classes=NUM_CLASSES, min_precision=0.5, thresholds=THRESHOLDS, device=dev),
+        })
+
+    _run_collection(binned, (probs, labels), device)  # warm-up
+    binned_stats.KERNEL_LAUNCHES = 0
+    mc_gpu, v_gpu, step_ms, compute_ms = _run_collection(binned, (probs, labels), device)
+    launches = binned_stats.KERNEL_LAUNCHES
+    assert launches == 2 * STEPS, f"binned_stats kernel launched {launches} times, expected {2 * STEPS}"
+    mc_cpu, v_cpu, _, _ = _run_collection(binned, (probs, labels), "cpu")
+    _check_states(mc_gpu, mc_cpu)
+    for key in v_cpu:
+        _check_values(key, v_gpu[key], v_cpu[key])
+    print(f"forward step on the card (host clock, after a warm-up run): median {np.median(step_ms):.4f} ms, "
+          f"max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; kernel launches {launches}; "
+          "states equal to the CPU run, values within 1e-6")
+    binned_step_ms = float(np.median(step_ms))
+
+    _phase("where a step's time goes (torch.profiler)")
+    for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):
+        print(f"{name} collection:")
+        _profile(make, (probs, labels), device, ms_step)
+
+    ms, plain_ms, bound_ms, bound_by, launch_ms = timings[SLICE_SHAPES[0]]
+    kernels = [{
+        "name": "binned_stats",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/binned_stats.cu",
+        "replaces": "metrics_tpu/ops/pallas_binned.py:156",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "shape": list(SLICE_SHAPES[0]),
+        "bare_launch_ms": launch_ms,
+        "other_shapes": [
+            {"shape": list(s), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
+             "bare_launch_ms": v[4]}
+            for s, v in timings.items() if s != SLICE_SHAPES[0]
+        ],
+    }]
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

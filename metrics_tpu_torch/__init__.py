@@ -1,0 +1,32 @@
+"""metrics_tpu_torch — the PyTorch / CUDA port of ``metrics_tpu``.
+
+Stateful, batch-accumulating metrics with cross-process sync on
+``torch.distributed``, written for an NVIDIA H100. The JAX package
+``metrics_tpu`` is the reference this package is tested against; the port
+imports nothing of it.
+
+Metrics hold their state on the CUDA device unless constructed with
+``device="cpu"``; without CUDA, constructing one without ``device="cpu"``
+raises.
+"""
+__version__ = "0.1.0"
+
+from metrics_tpu_torch.classification import (
+    Accuracy,
+    BinnedAveragePrecision,
+    BinnedPrecisionRecallCurve,
+    BinnedRecallAtFixedPrecision,
+    StatScores,
+)
+from metrics_tpu_torch.core.collections import MetricCollection
+from metrics_tpu_torch.core.metric import Metric
+
+__all__ = [
+    "Accuracy",
+    "BinnedAveragePrecision",
+    "BinnedPrecisionRecallCurve",
+    "BinnedRecallAtFixedPrecision",
+    "Metric",
+    "MetricCollection",
+    "StatScores",
+]

@@ -1,0 +1,528 @@
+"""The ``Metric`` base class: stateful batch accumulation with cross-process sync.
+
+Counterpart of ``metrics_tpu/core/metric.py`` (the contract subset): states
+declared with :meth:`Metric.add_state`, the update/compute wrappers with the
+compute cache and the compute-before-update warning, ``forward`` (batch value
+plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
+``reset``, ``clone``, ``state_dict``/``load_state_dict`` and pickling.
+
+``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
+states are registered buffers (so ``.to()``/``.cuda()`` move them), list
+states are plain Python lists. States are never written in place; every
+update assigns a new tensor, so a snapshot (the sync cache, a forward's
+accumulated state) is a dict of references, not copies.
+"""
+import functools
+import inspect
+from copy import deepcopy
+from typing import Any, Callable, Dict, List, Optional, Union
+
+import torch
+from torch import nn
+
+from metrics_tpu_torch.parallel.sync import distributed_available, host_sync_state
+from metrics_tpu_torch.utils.device import resolve_device
+from metrics_tpu_torch.utils.exceptions import (
+    MetricsTPUUserError,
+    StateDictMismatchError,
+    StateSchemaError,
+)
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+_MERGEABLE_FX = ("sum", "cat", "max", "min")
+
+
+def _copy_state_value(v: Any) -> Any:
+    return list(v) if isinstance(v, list) else v
+
+
+def _dtype_category(t: torch.Tensor) -> str:
+    if t.is_floating_point() or t.is_complex():
+        return "floating"
+    return "bool" if t.dtype == torch.bool else "integer"
+
+
+def _merge_leaf_divergences(name: str, a: Any, b: Any, fx: Any, declared: Any) -> List[str]:
+    """Reasons leaf ``b`` cannot merge into leaf ``a`` under ``fx`` (empty =
+    mergeable): list/"cat" leaves compare item shape and dtype family, reduce
+    leaves full shape and dtype family."""
+    cat_family = isinstance(a, list) or isinstance(b, list) or isinstance(declared, list) or fx == "cat"
+    if cat_family:
+        items = [v[0] if isinstance(v, list) else v for v in (a, b) if not isinstance(v, list) or v]
+        if len(items) < 2:
+            return []
+        ia, ib = items
+        out = []
+        if tuple(ia.shape[1:]) != tuple(ib.shape[1:]):
+            out.append(f"{name}: item shape {tuple(ib.shape[1:])} (incoming) vs {tuple(ia.shape[1:])} (self)")
+        if _dtype_category(ia) != _dtype_category(ib):
+            out.append(f"{name}: item dtype {ib.dtype} (incoming) vs {ia.dtype} (self)")
+        return out
+    if fx not in _MERGEABLE_FX and not callable(fx):
+        return []  # no algebraic merge anyway; merge_states raises its own error
+    out = []
+    if tuple(a.shape) != tuple(b.shape):
+        out.append(f"{name}: shape {tuple(b.shape)} (incoming) vs {tuple(a.shape)} (self)")
+    if _dtype_category(a) != _dtype_category(b):
+        out.append(f"{name}: dtype {b.dtype} (incoming) vs {a.dtype} (self)")
+    return out
+
+
+class Metric(nn.Module):
+    """Base class for all metrics.
+
+    **Subclass contract.** Declare states in ``__init__`` via
+    :meth:`add_state` (each with a ``dist_reduce_fx`` of ``"sum"``,
+    ``"mean"``, ``"max"``, ``"min"``, ``"cat"``, ``None`` or a callable),
+    then implement ``update(*batch)`` (assign to ``self.<state>``) and
+    ``compute()``.
+
+    Args:
+        compute_on_step: return the batch value from ``forward``.
+        dist_sync_on_step: sync state across processes when computing the
+            batch value in ``forward``.
+        process_group: the ``torch.distributed`` group to sync over
+            (``None``: the default group).
+        dist_sync_fn: custom ``(state_dict, reductions) -> state_dict``
+            replacing the built-in sync.
+        device: where the states live. ``None`` means CUDA, and raises when
+            CUDA is unavailable; pass ``"cpu"`` to run on the host.
+    """
+
+    is_differentiable: Optional[bool] = None
+
+    def __init__(
+        self,
+        compute_on_step: bool = True,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[Any] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        super().__init__()
+        self._device = resolve_device(device)
+        self._defaults: Dict[str, Any] = {}
+        self._reductions: Dict[str, Any] = {}
+        self._persistent: Dict[str, bool] = {}
+        self.compute_on_step = compute_on_step
+        self.dist_sync_on_step = dist_sync_on_step
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
+        self._update_called = False
+        self._update_count = 0
+        self._computed: Any = None
+        self._forward_cache: Any = None
+        self._to_sync = True
+        self._is_synced = False
+        self._cache: Optional[Dict[str, Any]] = None
+
+    # ------------------------------------------------------------------
+    # state declaration
+    # ------------------------------------------------------------------
+
+    def add_state(
+        self,
+        name: str,
+        default: Union[torch.Tensor, list, int, float],
+        dist_reduce_fx: Union[str, Callable, None] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a named state with its cross-process reduction.
+
+        ``default`` is a tensor (the reset value, placed on the metric's
+        device) or an empty list (a "cat" state that accumulates per-batch
+        tensors). ``dist_reduce_fx`` is both the cross-process reduction and
+        the merge rule used by ``forward`` and :meth:`merge_state`.
+        ``persistent`` states are written by ``state_dict()``.
+        """
+        if isinstance(default, list):
+            if default:
+                raise ValueError("state variable must be a tensor or an empty list")
+        elif not isinstance(default, (torch.Tensor, int, float)):
+            raise ValueError("state variable must be a tensor or an empty list")
+        if dist_reduce_fx is not None and not (
+            dist_reduce_fx in ("sum", "mean", "cat", "max", "min") or callable(dist_reduce_fx)
+        ):
+            raise ValueError(
+                "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'max', 'min', None]"
+            )
+        self._reductions[name] = dist_reduce_fx
+        self._persistent[name] = persistent
+        if isinstance(default, list):
+            self._defaults[name] = []
+            setattr(self, name, [])
+        else:
+            default = torch.as_tensor(default).to(self._device)
+            self._defaults[name] = default
+            self.register_buffer(name, default.clone(), persistent=False)
+
+    @property
+    def device(self) -> torch.device:
+        """The device holding this metric's states."""
+        return self._device
+
+    @property
+    def _state(self) -> Dict[str, Any]:
+        return {name: getattr(self, name) for name in self._defaults}
+
+    def _restore(self, state: Dict[str, Any]) -> None:
+        for k, v in state.items():
+            setattr(self, k, _copy_state_value(v))
+
+    def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
+        # buffers move with nn.Module's own _apply; the defaults and the
+        # list states are not buffers and move here
+        this = super()._apply(fn, *args, **kwargs)
+        for name, default in this._defaults.items():
+            if isinstance(default, torch.Tensor):
+                this._defaults[name] = fn(default)
+            else:
+                setattr(this, name, [fn(v) for v in getattr(this, name)])
+        this._device = fn(torch.zeros(0, device=this._device)).device
+        return this
+
+    # ------------------------------------------------------------------
+    # stateful API
+    # ------------------------------------------------------------------
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate the batch into state and return the batch-local value.
+
+        The batch runs through ``update`` on fresh state, its value is
+        computed, and the batch state is merged into the accumulation — one
+        update per batch where the state algebra allows, the reference's
+        double update otherwise.
+        """
+        if self._is_synced:
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        if not self.compute_on_step:
+            self.update(*args, **kwargs)
+            return None
+
+        accumulated = self._state
+        self._restore(self._defaults)
+        self.update(*args, **kwargs)
+        batch_state = self._state
+
+        # the compute wrapper syncs the batch value only if dist_sync_on_step
+        self._to_sync = self.dist_sync_on_step
+        self._computed = None
+        try:
+            self._forward_cache = self.compute()
+        finally:
+            self._to_sync = True
+        self._computed = None
+        if self.dist_sync_on_step:
+            batch_state = self._state  # the sync context restored the local batch state
+
+        if self._can_merge():
+            self._restore(self.merge_states(accumulated, batch_state))
+        else:
+            self._restore(accumulated)
+            self.update(*args, **kwargs)
+        return self._forward_cache
+
+    def update(self, *args: Any, **kwargs: Any) -> None:  # noqa: D102 - abstract
+        raise NotImplementedError(f"Metric {type(self).__name__} must implement `update`.")
+
+    def compute(self) -> Any:  # noqa: D102 - abstract
+        raise NotImplementedError(f"Metric {type(self).__name__} must implement `compute`.")
+
+    def __init_subclass__(cls, **kwargs: Any) -> None:
+        super().__init_subclass__(**kwargs)
+        if "update" in cls.__dict__ and not getattr(cls.update, "_wrapped", False):
+            cls.update = _wrap_update(cls.update)
+        if "compute" in cls.__dict__ and not getattr(cls.compute, "_wrapped", False):
+            cls.compute = _wrap_compute(cls.compute)
+
+    # ------------------------------------------------------------------
+    # sync
+    # ------------------------------------------------------------------
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Replace the local state by its cross-process reduction, keeping the
+        local state to restore at :meth:`unsync`.
+
+        A no-op unless more than one process takes part (or
+        ``distributed_available()`` says so). ``dist_sync_fn`` (or the
+        constructor's) replaces the built-in ``torch.distributed`` gather.
+        """
+        if self._is_synced and should_sync:
+            raise MetricsTPUUserError("The Metric has already been synced.")
+        is_distributed = (
+            distributed_available() if distributed_available is not None else self._distributed_available()
+        )
+        if not should_sync or not is_distributed:
+            return
+        fn = dist_sync_fn or self.dist_sync_fn
+        self._cache = self._state
+        if fn is not None:
+            synced = fn(dict(self._cache), self._reductions)
+        else:
+            synced = host_sync_state(self._cache, self._reductions, self.process_group)
+        self._restore(synced)
+        self._is_synced = True
+
+    def _distributed_available(self) -> bool:
+        return distributed_available(self.process_group)
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local state saved by :meth:`sync`."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsTPUUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsTPUUserError("The internal cache should exist to unsync the Metric.")
+        self._restore(self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    class _SyncContext:
+        def __init__(self, metric: "Metric", should_unsync: bool, **kwargs: Any) -> None:
+            self.metric = metric
+            self.kwargs = kwargs
+            self.should_unsync = should_unsync
+
+        def __enter__(self) -> "Metric":
+            self.metric.sync(**self.kwargs)
+            return self.metric
+
+        def __exit__(self, *exc: Any) -> None:
+            self.metric.unsync(should_unsync=self.metric._is_synced and self.should_unsync)
+
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> "Metric._SyncContext":
+        """Context manager: sync on enter, restore the local state on exit."""
+        return Metric._SyncContext(
+            self,
+            should_unsync,
+            dist_sync_fn=dist_sync_fn,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+
+    # ------------------------------------------------------------------
+    # merge / reset / clone
+    # ------------------------------------------------------------------
+
+    def _can_merge(self) -> bool:
+        if type(self).merge_states is not Metric.merge_states:
+            return True
+        return all(
+            fx in _MERGEABLE_FX or isinstance(self._defaults[name], list)
+            for name, fx in self._reductions.items()
+        )
+
+    def merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any]) -> Dict[str, Any]:
+        """Merge two accumulated states of this metric into one, by each
+        state's reduction: sum → add, cat → concat, max/min → elementwise."""
+        out: Dict[str, Any] = {}
+        for name, fx in self._reductions.items():
+            a, b = state_a[name], state_b[name]
+            if isinstance(self._defaults[name], list):
+                out[name] = list(a) + list(b)
+            elif fx == "sum":
+                out[name] = a + b
+            elif fx == "max":
+                out[name] = torch.maximum(a, b)
+            elif fx == "min":
+                out[name] = torch.minimum(a, b)
+            elif fx == "cat":
+                out[name] = torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)])
+            else:
+                raise MetricsTPUUserError(
+                    f"State {name!r} with reduction {fx!r} has no algebraic merge; "
+                    f"override `merge_states` in {type(self).__name__}."
+                )
+        return out
+
+    def _validate_merge_schema(self, other: Dict[str, Any], what: str) -> None:
+        missing = [n for n in self._reductions if n not in other]
+        unexpected = [n for n in sorted(other) if n not in self._reductions]
+        state = self._state
+        divergent: List[str] = []
+        for name, fx in self._reductions.items():
+            if name in other:
+                divergent.extend(_merge_leaf_divergences(name, state[name], other[name], fx, self._defaults[name]))
+        if missing or unexpected or divergent:
+            raise StateSchemaError(
+                f"merge_state: incoming {what} does not match "
+                f"{type(self).__name__}'s state schema: "
+                + "; ".join(
+                    ([f"missing states: {missing}"] if missing else [])
+                    + ([f"unexpected states: {unexpected}"] if unexpected else [])
+                    + divergent
+                )
+            )
+
+    def merge_state(self, incoming: Union["Metric", Dict[str, Any]]) -> None:
+        """Merge another metric's (or raw state dict's) accumulation into
+        self. An incompatible schema raises :class:`StateSchemaError` naming
+        the divergent leaves, before any state changes."""
+        if isinstance(incoming, Metric):
+            other, what = incoming._state, type(incoming).__name__
+        else:
+            other, what = incoming, "state dict"
+        self._validate_merge_schema(other, what)
+        self._restore(self.merge_states(self._state, other))
+        self._computed = None
+
+    def reset(self) -> None:
+        """Reset every state to its default."""
+        self._update_called = False
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+        # fresh copies: a subclass that updates in place must not write into
+        # the defaults (forward, on the hot path, aliases them instead)
+        self._restore({k: v.clone() if isinstance(v, torch.Tensor) else [] for k, v in self._defaults.items()})
+        self._is_synced = False
+        self._cache = None
+
+    def clone(self) -> "Metric":
+        """Deep copy."""
+        return deepcopy(self)
+
+    # ------------------------------------------------------------------
+    # serialization
+    # ------------------------------------------------------------------
+
+    def persistent(self, mode: bool = False) -> None:
+        """Set whether every state is written by ``state_dict()``."""
+        for name in self._persistent:
+            self._persistent[name] = mode
+
+    def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
+        # nn.Module.state_dict() calls this for every module of a tree, so a
+        # Metric nested in a model or a MetricCollection writes its states
+        for name in self._defaults:
+            if not self._persistent[name]:
+                continue
+            v = getattr(self, name)
+            if isinstance(v, list):
+                destination[prefix + name] = [x if keep_vars else x.detach() for x in v]
+            else:
+                destination[prefix + name] = v if keep_vars else v.detach()
+
+    def _load_from_state_dict(
+        self,
+        state_dict: Dict[str, Any],
+        prefix: str,
+        local_metadata: Dict[str, Any],
+        strict: bool,
+        missing_keys: List[str],
+        unexpected_keys: List[str],
+        error_msgs: List[str],
+    ) -> None:
+        for name in self._defaults:
+            key = prefix + name
+            if key in state_dict:
+                v = state_dict[key]
+                if isinstance(v, list):
+                    loaded: Any = [torch.as_tensor(x).to(self._device) for x in v]
+                else:
+                    loaded = torch.as_tensor(v).to(self._device)
+                setattr(self, name, loaded)
+                self._update_called = True
+                # the loaded state supersedes any memoized result
+                self._computed = None
+                self._forward_cache = None
+            elif strict and self._persistent[name]:
+                missing_keys.append(key)
+        if strict:
+            for key in state_dict:
+                if key.startswith(prefix) and key[len(prefix):] not in self._defaults and "." not in key[len(prefix):]:
+                    unexpected_keys.append(key)
+
+    def load_state_dict(  # type: ignore[override]
+        self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = False
+    ) -> None:
+        """Resume accumulated state from a ``state_dict`` snapshot.
+
+        By default declared states absent from the snapshot are skipped. With
+        ``strict=True`` the key sets must match exactly, or a
+        :class:`StateDictMismatchError` listing every missing and unexpected
+        key is raised before any state changes.
+        """
+        if strict:
+            declared = {prefix + name for name in self._defaults}
+            present = {k for k in state_dict if not prefix or k.startswith(prefix)}
+            missing = sorted(declared - set(state_dict))
+            unexpected = sorted(present - declared)
+            if missing or unexpected:
+                raise StateDictMismatchError(
+                    f"load_state_dict(strict=True) for {type(self).__name__}: "
+                    f"missing keys {missing}, unexpected keys {unexpected}. "
+                    "Nothing was loaded."
+                )
+        self._load_from_state_dict(state_dict, prefix, {}, False, [], [], [])
+
+    # ------------------------------------------------------------------
+    # kwarg filtering (MetricCollection broadcasts a superset of kwargs)
+    # ------------------------------------------------------------------
+
+    def _filtered_kwargs(self, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+        """Keep only the kwargs this metric's ``update`` accepts."""
+        if not kwargs:
+            return kwargs
+        names = self.__dict__.get("_update_kwarg_names")
+        if names is None:  # the signature is inspected once per instance
+            params = inspect.signature(self.update).parameters
+            names = True if any(p.kind == p.VAR_KEYWORD for p in params.values()) else frozenset(params)
+            self._update_kwarg_names = names
+        if names is True:
+            return kwargs
+        return {k: v for k, v in kwargs.items() if k in names}
+
+
+def _wrap_update(update: Callable) -> Callable:
+    @functools.wraps(update)
+    def wrapped_func(self: Metric, *args: Any, **kwargs: Any) -> None:
+        if self._is_synced:
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        self._computed = None
+        self._update_called = True
+        self._update_count += 1
+        with torch.no_grad():
+            return update(self, *args, **kwargs)
+
+    wrapped_func._wrapped = True  # type: ignore[attr-defined]
+    return wrapped_func
+
+
+def _wrap_compute(compute: Callable) -> Callable:
+    @functools.wraps(compute)
+    def wrapped_func(self: Metric, *args: Any, **kwargs: Any) -> Any:
+        if not self._update_called:
+            rank_zero_warn(
+                f"The ``compute`` method of metric {type(self).__name__} was called before "
+                "the ``update`` method which may lead to errors, as metric states have not "
+                "yet been updated.",
+                UserWarning,
+            )
+        if self._computed is not None:
+            return self._computed
+        should = self._to_sync and not self._is_synced
+        with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=should, should_unsync=should):
+            self._computed = compute(self, *args, **kwargs)
+        return self._computed
+
+    wrapped_func._wrapped = True  # type: ignore[attr-defined]
+    return wrapped_func

@@ -1,0 +1,42 @@
+"""Carry metric state across from the JAX package.
+
+The counterpart, for a metrics library, of carrying a model's weights across:
+a ``metrics_tpu`` metric's (or collection's) ``state_dict()`` — numpy arrays
+and lists of them — becomes a dict this package's ``load_state_dict`` takes.
+"""
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from metrics_tpu_torch.utils.device import resolve_device
+
+
+def _tensor(x: Any, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.kind in "iu":
+        # the JAX package counts in int32 (x64 off); this package in int64
+        return torch.as_tensor(arr.astype(np.int64), device=device)
+    if arr.dtype.kind == "f":
+        return torch.as_tensor(arr.astype(np.float32), device=device)
+    return torch.as_tensor(arr, device=device)
+
+
+def state_dict_from_reference(
+    sd: Dict[str, Any], device: Optional[Union[str, torch.device]] = None
+) -> Dict[str, Any]:
+    """Turn a ``metrics_tpu`` ``state_dict()`` into one for ``load_state_dict``.
+
+    Integer states become int64, floating states float32, list states stay
+    lists (of converted tensors). ``device=None`` means CUDA, as everywhere in
+    this package.
+    """
+    dev = resolve_device(device)
+    out: Dict[str, Any] = {}
+    for key, value in sd.items():
+        if isinstance(value, dict):
+            raise ValueError(
+                f"state {key!r} is a fixed-capacity CatBuffer snapshot, which this package does not port yet"
+            )
+        out[key] = [_tensor(v, dev) for v in value] if isinstance(value, (list, tuple)) else _tensor(value, dev)
+    return out

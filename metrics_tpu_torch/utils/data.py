@@ -1,0 +1,79 @@
+"""Tensor utilities shared by every metric.
+
+Counterpart of ``metrics_tpu/utils/data.py``: the state reducers
+(``dim_zero_*``), one-hot encoding, top-k binarization and the threshold grid
+of the binned metrics.
+"""
+from typing import List, Optional, Union
+
+import torch
+
+METRIC_EPS = 1e-6
+
+
+def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
+    """Concatenate a (possibly list-valued) state along dim 0."""
+    x = list(x) if isinstance(x, (list, tuple)) else [x]
+    if not x:
+        raise ValueError("No samples to concatenate")
+    return torch.cat([y.unsqueeze(0) if y.ndim == 0 else y for y in x], dim=0)
+
+
+def dim_zero_sum(x: torch.Tensor) -> torch.Tensor:
+    return torch.sum(x, dim=0)
+
+
+def dim_zero_mean(x: torch.Tensor) -> torch.Tensor:
+    # jnp.mean of an integer array is float32 (x64 off); torch.mean refuses ints
+    return torch.mean(x if x.is_floating_point() else x.to(torch.float32), dim=0)
+
+
+def dim_zero_max(x: torch.Tensor) -> torch.Tensor:
+    return torch.amax(x, dim=0)
+
+
+def dim_zero_min(x: torch.Tensor) -> torch.Tensor:
+    return torch.amin(x, dim=0)
+
+
+def to_onehot(label_tensor: torch.Tensor, num_classes: Optional[int] = None) -> torch.Tensor:
+    """Convert integer labels ``[N, d1, ...]`` to one-hot ``[N, C, d1, ...]``."""
+    if num_classes is None:
+        num_classes = int(label_tensor.max()) + 1  # data-dependent
+    classes = torch.arange(num_classes, device=label_tensor.device)
+    classes = classes.reshape((num_classes,) + (1,) * label_tensor.ndim)
+    onehot = (label_tensor.unsqueeze(0) == classes).long()
+    return torch.movedim(onehot, 0, 1)  # [C, N, ...] -> [N, C, ...]
+
+
+def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch.Tensor:
+    """Binarize scores: 1 where a value is among the top-k along ``dim``.
+
+    k=1 is an argmax one-hot, as in the JAX package: ``torch.argmax`` and
+    ``jnp.argmax`` agree on ties (first maximum) and on NaN (first NaN).
+    """
+    moved = torch.movedim(prob_tensor, dim, -1)
+    if topk == 1:
+        mask = torch.nn.functional.one_hot(torch.argmax(moved, dim=-1), moved.shape[-1])
+    else:
+        idx = torch.topk(moved, topk, dim=-1).indices
+        mask = torch.zeros(moved.shape, dtype=torch.long, device=moved.device).scatter_(-1, idx, 1)
+    return torch.movedim(mask, -1, dim)
+
+
+def _linspace_like_reference(num: int) -> torch.Tensor:
+    """``num`` float32 thresholds evenly spaced in [0, 1], bit for bit those of
+    the JAX package's ``jnp.linspace(0, 1.0, num)``.
+
+    ``torch.linspace`` rounds differently (for num=100 one value of 100
+    differs, for 101 twenty). XLA computes ``iota * (1 / (num - 1))`` in
+    float32 and appends the endpoint; this repeats that arithmetic. Built on
+    the CPU; move it where it is needed.
+    """
+    if num < 1:
+        raise ValueError(f"Expected a positive number of thresholds, got {num}")
+    if num == 1:
+        return torch.zeros(1, dtype=torch.float32)
+    step = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(num - 1), dtype=torch.float32)
+    head = torch.arange(num - 1, dtype=torch.float32) * step
+    return torch.cat([head, torch.ones(1, dtype=torch.float32)])

@@ -1,0 +1,110 @@
+"""Cross-process sync of the port on two real gloo ranks (CPU).
+
+One spawn of two processes serves every test in this file: each rank drives
+its own, uneven share of the batches, then reports what its synced
+``compute()`` returned. The synced values must equal one process that saw all
+the batches.
+"""
+import os
+import socket
+
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+import metrics_tpu_torch as port
+from metrics_tpu_torch.parallel.sync import gather_all_arrays
+from metrics_tpu_torch.utils.exceptions import StateDivergenceError
+
+C = 10
+# uneven batch sizes and batch counts per rank
+RANK_BATCHES = {0: [100, 37], 1: [64, 90, 11]}
+
+
+def _batches(rank):
+    rng = np.random.RandomState(10 + rank)
+    return [
+        (torch.from_numpy(rng.rand(n, C).astype(np.float32)), torch.from_numpy(rng.randint(0, C, n)))
+        for n in RANK_BATCHES[rank]
+    ]
+
+
+def _flagship():
+    return port.MetricCollection({
+        "acc": port.Accuracy(num_classes=C, device="cpu"),
+        "stats": port.StatScores(reduce="macro", num_classes=C, device="cpu"),
+        "samples": port.StatScores(reduce="samples", num_classes=C, device="cpu"),
+    })
+
+
+def _worker(rank, world, port_no, out_dir):
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world, rank=rank)
+    try:
+        result = {}
+        mc = _flagship()
+        for p, t in _batches(rank):
+            mc(p, t)
+        local = {k: m._state for k, m in mc.items()}
+        result["synced"] = mc.compute()
+        # compute() restores the local state after syncing
+        result["restored"] = all(
+            all(torch.equal(torch.as_tensor(v[0] if isinstance(v, list) else v),
+                            torch.as_tensor(m._state[n][0] if isinstance(v, list) else m._state[n]))
+                for n, v in local[k].items())
+            for k, m in mc.items()
+        )
+        shapes = [tuple(x.shape) for x in gather_all_arrays(torch.zeros(rank + 2, 3))]
+        result["gathered_shapes"] = shapes
+
+        # a list state left empty on one rank: every rank raises together
+        samples = port.StatScores(reduce="samples", num_classes=C, device="cpu")
+        if rank == 0:
+            samples.update(*_batches(0)[0])
+        try:
+            samples.compute()
+            result["empty_list"] = "no error"
+        except StateDivergenceError as err:
+            result["empty_list"] = type(err).__name__
+        torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.fixture(scope="module")
+def two_rank_results(tmp_path_factory):
+    out_dir = str(tmp_path_factory.mktemp("gloo"))
+    mp.start_processes(_worker, args=(2, _free_port(), out_dir), nprocs=2, join=True, start_method="spawn")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+
+def test_synced_compute_equals_one_process_on_all_batches(two_rank_results):
+    single = _flagship()
+    for rank in sorted(RANK_BATCHES):
+        for p, t in _batches(rank):
+            single.update(p, t)
+    want = single.compute()
+    for rank, result in enumerate(two_rank_results):
+        got = result["synced"]
+        assert sorted(got) == sorted(want)
+        torch.testing.assert_close(got["acc"], want["acc"], rtol=0, atol=1e-6)
+        assert torch.equal(got["stats"], want["stats"]), rank
+        # list state: rank order, then batch order, as the gather concatenates
+        assert torch.equal(got["samples"], want["samples"]), rank
+        assert result["restored"], rank
+
+
+def test_uneven_gather_trims_each_rank(two_rank_results):
+    for result in two_rank_results:
+        assert result["gathered_shapes"] == [(2, 3), (3, 3)]
+
+
+def test_empty_list_state_raises_on_every_rank(two_rank_results):
+    assert [r["empty_list"] for r in two_rank_results] == ["StateDivergenceError"] * 2
