@@ -6,7 +6,10 @@
 1. checks for a card and prints its name and power limit;
 2. builds the CUDA kernels from ``metrics_tpu_torch/csrc``;
 3. holds every kernel against its plain PyTorch version on the card (bit for
-   bit) and times both at the main path's shapes;
+   bit): the binned-counts kernel in both its designs, the shared-memory
+   histogram and the compare kernel; times both designs, the wrapper and the
+   plain versions at the main path's shapes, and counts the device
+   operations of one wrapper call with ``torch.profiler``;
 4. drives the flagship collection, ``Accuracy`` + macro ``StatScores`` over
    10 classes, for 16 ``forward`` steps of [2048, 10] probabilities, then
    ``compute()``, and holds it against the same run on the CPU;
@@ -32,9 +35,10 @@ BATCH, NUM_CLASSES, STEPS, THRESHOLDS = 2048, 10, 16, 100
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # the five shapes of tests/ops/test_pallas_binned.py, then the main path's
-# binned update and the JAX package's binned benchmark shape
+# binned update, the JAX package's binned benchmark shape and an ImageNet-1k
+# eval batch with the default 100 thresholds
 TEST_SHAPES = [(37, 3, 100), (256, 10, 5), (5, 1, 1), (1000, 17, 130), (64, 130, 20)]
-SLICE_SHAPES = [(BATCH, NUM_CLASSES, THRESHOLDS), (65536, 8, 128)]
+SLICE_SHAPES = [(BATCH, NUM_CLASSES, THRESHOLDS), (65536, 8, 128), (2048, 1000, 100)]
 VALUE_ATOL = 1e-6  # float32 values reduced in another order on the card
 
 
@@ -42,8 +46,11 @@ def _phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
-def _binned_inputs(n, c, t, seed, device, unsorted=False, target_dtype=np.float32):
-    """Preds with exact-threshold ties and NaNs planted, {0,1} targets."""
+def _binned_inputs(n, c, t, seed, device, unsorted=False, target_dtype=np.float32, nan_thresholds=False,
+                   inf_preds=False):
+    """Preds with exact-threshold ties and NaNs planted, {0,1} targets;
+    optionally unsorted thresholds with duplicates, NaN thresholds, and
+    +inf / -inf preds."""
     from metrics_tpu_torch.utils.data import _linspace_like_reference
 
     rng = np.random.RandomState(seed)
@@ -53,8 +60,13 @@ def _binned_inputs(n, c, t, seed, device, unsorted=False, target_dtype=np.float3
         k = min(n // 4, t)
         preds[:k] = thresholds[rng.randint(0, t, (k, c))]
         preds[k, 0] = np.nan
+    if inf_preds:
+        preds[rng.rand(n, c) < 0.05] = np.inf
+        preds[rng.rand(n, c) < 0.05] = -np.inf
     if unsorted:
         thresholds = np.concatenate([rng.permutation(thresholds), thresholds[:3]])
+    if nan_thresholds:
+        thresholds = rng.permutation(np.concatenate([thresholds, [np.nan, np.nan]]).astype(np.float32))
     target = (rng.rand(n, c) > 0.5).astype(target_dtype)
     return (torch.from_numpy(preds).to(device), torch.from_numpy(target).to(device),
             torch.from_numpy(thresholds).to(device))
@@ -78,18 +90,23 @@ def _time_ms(fn, reps: int = 15, inner: int = 20) -> float:
     return float(np.median(times))
 
 
-def _launch_only(preds, target, thr):
-    """The bare kernel launch on preallocated counts (no allocation, no FP/FN
-    forming), to separate the kernel's time from its wrapper's."""
+def _launch_only(preds, target, thr, design=None):
+    """The bare C entry (its scratch memset and its kernel) on preallocated
+    scratch and output, without the wrapper's checks and allocations, to
+    separate the kernel's time from its wrapper's. ``design`` forces the
+    histogram or the compare kernel."""
     from metrics_tpu_torch.ops import _build, binned_stats
 
     lib = _build.load_library()
     n, c = preds.shape
     t = thr.numel()
-    counts = torch.zeros(2 * c * t + c, dtype=torch.int32, device=preds.device)
+    chosen, tile, rows = binned_stats._plan(
+        n, c, t, binned_stats._SMEM_OPTIN, binned_stats._sm_count(preds.device.index), design=design)
+    nbytes = binned_stats._scratch_bytes(chosen, n, c, t, tile, rows)
+    scratch = torch.empty(max(nbytes, 1), dtype=torch.uint8, device=preds.device)
+    out = torch.empty((3, c, t), dtype=torch.float32, device=preds.device)
     args = (preds.data_ptr(), target.data_ptr(), binned_stats._TARGET_KINDS[target.dtype], thr.data_ptr(),
-            n, c, t, binned_stats._rows_per_block(n, c, preds.device),
-            counts.data_ptr(), counts[c * t:].data_ptr(), counts[2 * c * t:].data_ptr(),
+            n, c, t, binned_stats._DESIGNS[chosen], tile, rows, scratch.data_ptr(), nbytes, out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
 
     def launch():
@@ -99,12 +116,33 @@ def _launch_only(preds, target, thr):
     return launch
 
 
+def _device_profile(fn, calls: int = 20):
+    """What one call of ``fn`` puts on the card, by ``torch.profiler``: the
+    number of device operations (kernels, memsets, copies), their device time
+    in ms, and their names; (None, None, []) when it traced none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return None, None, []
+    device_ms = sum(e.time_range.elapsed_us() for e in ops) / calls / 1e3
+    return len(ops) / calls, device_ms, sorted({e.name[:60] for e in ops})
+
+
 def _bound(n: int, c: int, t: int):
     """Least time for the binned counts: each input read once (float32 preds
     and targets, thresholds), each output written once (three float32 [C, T]),
-    one float32 compare per (n, c, t)."""
+    against the compares the histogram needs: one bucket search of
+    log2(T+1) float32 compares per element."""
     nbytes = 4 * (2 * n * c + t + 3 * c * t)
-    ops = n * c * t
+    ops = n * c * float(np.log2(t + 1))
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
@@ -225,31 +263,79 @@ def main() -> int:
 
     _phase("kernel vs plain on the card")
     max_err = 0.0
-    cases = [(s, False, np.float32) for s in TEST_SHAPES + SLICE_SHAPES]
-    cases += [((300, 7, 50), True, np.float32), ((300, 7, 50), False, np.int64), ((300, 7, 50), False, np.int32)]
-    for seed, ((n, c, t), unsorted, target_dtype) in enumerate(cases):
-        preds, target, thr = _binned_inputs(n, c, t, seed, device, unsorted=unsorted, target_dtype=target_dtype)
-        got = binned_stats.binned_stat_scores(preds, target, thr)
+    base = dict(unsorted=False, target_dtype=np.float32, nan_thresholds=False, inf_preds=False)
+    cases = [(s, base) for s in TEST_SHAPES + SLICE_SHAPES[:2]]
+    cases += [((300, 7, 50), dict(base, unsorted=True)), ((300, 7, 50), dict(base, target_dtype=np.int64)),
+              ((300, 7, 50), dict(base, target_dtype=np.int32))]
+    cases += [
+        ((300, 7, 50), dict(base, nan_thresholds=True)),
+        ((300, 7, 50), dict(base, unsorted=True, nan_thresholds=True, inf_preds=True)),
+        ((300, 7, 50), dict(base, inf_preds=True)),
+        ((300, 7, 1), base),
+        ((300, 1000, 100), dict(base, unsorted=True, nan_thresholds=True)),
+        # 16-byte loads of int64 and int32 targets, a threshold table above
+        # 48 KB of shared memory, and thresholds too many for the histogram
+        ((512, 12, 50), dict(base, unsorted=True, target_dtype=np.int64)),
+        ((512, 12, 50), dict(base, target_dtype=np.int32)),
+        ((256, 4, 5000), dict(base, unsorted=True)),
+        ((64, 3, 16000), base),
+    ]
+    sm_count, smem_limit = binned_stats._sm_count(0), binned_stats._SMEM_OPTIN
+    print(f"card: {sm_count} SMs; plans assume {smem_limit} bytes of opt-in shared memory per block (sm_90)")
+    for seed, ((n, c, t), opts) in enumerate(cases):
+        preds, target, thr = _binned_inputs(n, c, t, seed, device, **opts)
         want = binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False)
-        torch.cuda.synchronize()
-        for g, w, what in zip(got, want, ("tp", "fp", "fn")):
-            err = float((g - w).abs().max())
-            max_err = max(max_err, err)
-            assert torch.equal(g, w), f"kernel {what} differs from the compare form at {(n, c, t)}: {err}"
-        print(f"shape N={n} C={c} T={thr.numel()}{' unsorted' if unsorted else ''} "
-              f"target {target.dtype}: bit-exact")
+        bucket = binned_stats._binned_stats_bucket(preds, target, thr)
+        plan = binned_stats._plan(n, c, thr.numel(), smem_limit, sm_count)
+        for design, got in (
+            (plan[0], binned_stats.binned_stat_scores(preds, target, thr)),
+            ("compare", binned_stats._binned_stats_kernel(preds, target, thr, design="compare")),
+            ("plain bucket", bucket),
+        ):
+            torch.cuda.synchronize()
+            for g, w, what in zip(got, want, ("tp", "fp", "fn")):
+                err = float((g - w).abs().max()) if g.numel() else 0.0
+                max_err = max(max_err, err)
+                assert torch.equal(g, w), f"{design} {what} differs from the compare form at {(n, c, t)}: {err}"
+        flags = " ".join(k for k, v in opts.items() if v is True)
+        print(f"shape N={n} C={c} T={thr.numel()} {flags} target {target.dtype}: plan {plan}; "
+              "kernel, forced compare kernel and plain bucket bit-exact")
 
     timings = {}
     for n, c, t in SLICE_SHAPES:
         preds, target, thr = _binned_inputs(n, c, t, 0, device)
-        ms = _time_ms(lambda: binned_stats.binned_stat_scores(preds, target, thr))
+        plan = binned_stats._plan(n, c, t, smem_limit, sm_count)
+
+        def wrapper():
+            return binned_stats.binned_stat_scores(preds, target, thr)
+
+        def compare():
+            return binned_stats._binned_stats_kernel(preds, target, thr, design="compare")
+
+        ms = _time_ms(wrapper)
         launch_ms = _time_ms(_launch_only(preds, target, thr))
-        plain_ms = _time_ms(lambda: binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False))
+        compare_ms = _time_ms(_launch_only(preds, target, thr, design="compare"))
+        launch_ms_2 = _time_ms(_launch_only(preds, target, thr))
+        plain_ms = _time_ms(lambda: binned_stats._binned_stats_bucket(preds, target, thr))
+        plain_compare_ms = _time_ms(lambda: binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False))
+        ops, device_ms, op_names = _device_profile(wrapper)
+        compare_ops, compare_device_ms, _ = _device_profile(compare)
+        _, device_ms_2, _ = _device_profile(wrapper)
+        assert ops is None or ops <= 2, f"a wrapper call put {ops} operations on the card: {op_names}"
         bound_ms, bound_by = _bound(n, c, t)
-        timings[(n, c, t)] = (ms, plain_ms, bound_ms, bound_by, launch_ms)
-        print(f"binned_stats N={n} C={c} T={t}: wrapper {ms:.5f} ms (bare launch {launch_ms:.5f} ms), "
-              f"plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms ({bound_by}); "
-              "no single PyTorch call computes this")
+        timings[(n, c, t)] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, bare_launch_ms=launch_ms,
+            bare_launch_ms_again=launch_ms_2, device_ms=device_ms, device_ms_again=device_ms_2,
+            compare_bare_launch_ms=compare_ms, compare_device_ms=compare_device_ms, compare_device_ops=compare_ops,
+            plain_compare_ms=plain_compare_ms, device_ops_per_call=ops, plan=list(plan),
+        )
+        share = "not measured" if device_ms is None else f"{100 * bound_ms / device_ms:.2f}% of it"
+        print(f"binned_stats N={n} C={c} T={t} plan {plan}: wrapper {ms:.5f} ms; bare launch (host clock of "
+              f"back-to-back C calls, CUDA events) histogram {launch_ms:.5f} / {launch_ms_2:.5f} ms, compare "
+              f"{compare_ms:.5f} ms; device time per call (torch.profiler) histogram {device_ms} / {device_ms_2} ms "
+              f"in {ops} ops {op_names}, compare {compare_device_ms} ms in {compare_ops} ops; plain bucket "
+              f"{plain_ms:.5f} ms, plain compare {plain_compare_ms:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}), "
+              f"{share}; no single PyTorch call computes this")
 
     _phase("flagship collection: Accuracy + StatScores(macro)")
     rng = np.random.RandomState(0)
@@ -302,7 +388,7 @@ def main() -> int:
         print(f"{name} collection:")
         _profile(make, (probs, labels), device, ms_step)
 
-    ms, plain_ms, bound_ms, bound_by, launch_ms = timings[SLICE_SHAPES[0]]
+    main = timings[SLICE_SHAPES[0]]
     kernels = [{
         "name": "binned_stats",
         "route": "cuda",
@@ -310,18 +396,20 @@ def main() -> int:
         "replaces": "metrics_tpu/ops/pallas_binned.py:156",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": None,
+        "design": "histogram",
         "shape": list(SLICE_SHAPES[0]),
-        "bare_launch_ms": launch_ms,
-        "other_shapes": [
-            {"shape": list(s), "ms": v[0], "plain_ms": v[1], "bound_ms": v[2], "bound_by": v[3],
-             "bare_launch_ms": v[4]}
-            for s, v in timings.items() if s != SLICE_SHAPES[0]
-        ],
+        "bare_launch_ms": main["bare_launch_ms"],
+        "device_ms": main["device_ms"],
+        "compare_bare_launch_ms": main["compare_bare_launch_ms"],
+        "compare_device_ms": main["compare_device_ms"],
+        "plain_compare_ms": main["plain_compare_ms"],
+        "device_ops_per_call": main["device_ops_per_call"],
+        "other_shapes": [dict(v, shape=list(s)) for s, v in timings.items() if s != SLICE_SHAPES[0]],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

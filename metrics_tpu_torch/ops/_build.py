@@ -120,10 +120,12 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_longlong,  # n
             ctypes.c_int,  # c
             ctypes.c_int,  # t
+            ctypes.c_int,  # design
+            ctypes.c_int,  # class tile
             ctypes.c_int,  # rows per block
-            ctypes.c_void_p,  # tp
-            ctypes.c_void_p,  # cnt
-            ctypes.c_void_p,  # pos
+            ctypes.c_void_p,  # scratch
+            ctypes.c_longlong,  # scratch bytes
+            ctypes.c_void_p,  # out
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int

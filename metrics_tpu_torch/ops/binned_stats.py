@@ -1,22 +1,26 @@
 """Binned PR-curve hot op: per-class, per-threshold TP/FP/FN counts.
 
 Counterpart of ``metrics_tpu/ops/pallas_binned.py``. For ``[N, C]``
-probabilities, ``[N, C]`` binary targets and ``[T]`` thresholds it returns
-three ``[C, T]`` float32 tensors, TP, FP and FN, where a pred counts as
-positive at every threshold it is ``>=`` to (float32 compare; a NaN pred is
-negative everywhere).
+probabilities, ``[N, C]`` binary targets and ``[T]`` thresholds (in any
+order) it returns three ``[C, T]`` float32 tensors, TP, FP and FN, where a
+pred counts as positive at every threshold it is ``>=`` to (float32 compare;
+a NaN pred is negative everywhere, a NaN threshold counts nothing).
 
 Three implementations, equal bit for bit (ties and NaN included):
 
 - :func:`_binned_stats_kernel` — the hand-written CUDA kernel
   (``csrc/binned_stats.cu``), which replaces the TPU kernel
   ``metrics_tpu/ops/pallas_binned.py::_kernel``. Every CUDA tensor goes here.
+  It has two designs, picked by :func:`_plan` from the shapes alone: the
+  shared-memory bucket histogram, and the compare kernel for thresholds too
+  many for the histogram's tables.
 - :func:`_binned_stats_compare` — a broadcast ``[N, C, T]`` compare, the
   oracle the others are held against.
-- :func:`_binned_stats_bucket` — each pred is bucketed once against ascending
-  thresholds (``searchsorted``) and the counts fall out of a reverse cumulative
-  sum over a histogram. The CPU path for ascending thresholds.
+- :func:`_binned_stats_bucket` — the histogram kernel's algorithm in torch:
+  each pred bucketed once against the sorted thresholds, a histogram, a
+  suffix sum, a scatter back through the sort's permutation. The CPU path.
 """
+import contextlib
 import functools
 from typing import Optional, Tuple
 
@@ -28,6 +32,13 @@ __all__ = ["binned_stat_scores", "KERNEL_LAUNCHES"]
 KERNEL_LAUNCHES = 0
 
 _TARGET_KINDS = {torch.float32: 0, torch.int32: 1, torch.int64: 2}
+_DESIGNS = {"histogram": 0, "compare": 1}
+_COMPARE_TILE = 32  # classes per block of the compare kernel (kCompareTile)
+_THREADS = 256  # threads per block (kThreads)
+# opt-in shared memory of a block on sm_90 (H100, H200), the one target the
+# kernels are built for, and the bytes of it left for static shared variables
+_SMEM_OPTIN = 232448
+_SMEM_RESERVE = 1024
 
 Stats = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -45,33 +56,105 @@ def _binned_stats_compare(preds: torch.Tensor, target: torch.Tensor, thresholds:
 
 
 def _binned_stats_bucket(preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor) -> Stats:
-    """Bucket histogram, O(N*C*log T); needs ascending thresholds.
+    """Bucket histogram, O(N*C*log T), for thresholds in any order.
 
-    ``bucket = searchsorted(thresholds, pred, right=True)`` is the number of
-    thresholds <= pred, so ``TP(t)`` is the sum of targets with bucket > t: a
-    suffix sum of a ``[C, T+1, 2]`` histogram that carries the weighted and
-    the raw counts in one scatter. Float32 sums, as in the JAX package; exact
-    while every count stays below 2^24.
+    The thresholds are sorted (stable, NaN last) and ``bucket = #{sorted
+    non-NaN thresholds <= pred}``; a NaN pred lands in bucket 0. Then the
+    count at sorted threshold ``j`` is the sum of the histogram's bins above
+    ``j``: a suffix sum of a ``[C, T+1, 2]`` int64 histogram that carries the
+    target and the raw counts in one scatter. The sums go back to the
+    thresholds' own order through the permutation and are cast to float32
+    once, at the end.
     """
     preds = preds.to(torch.float32)
-    thresholds = thresholds.to(torch.float32)
+    thr = thresholds.to(torch.float32)
     n, c = preds.shape
-    t = thresholds.shape[0]
+    t = thr.shape[0]
+    nan = torch.isnan(thr)
+    order = torch.argsort(torch.where(nan, torch.full_like(thr, float("inf")), thr), stable=True)
+    order = order[torch.argsort(nan[order].to(torch.uint8), stable=True)]
+    sorted_thr = thr[order]
+    valid = (~nan).sum()
     flat_p = preds.reshape(-1)
-    bucket = torch.searchsorted(thresholds, flat_p, right=True)
-    # `pred >= thr` is False for NaN: bucket 0, negative at every threshold
+    # the NaN tail is +inf here and clamped away: +inf <= +inf would count it
+    search = torch.where(torch.isnan(sorted_thr), torch.full_like(sorted_thr, float("inf")), sorted_thr)
+    bucket = torch.minimum(torch.searchsorted(search, flat_p, right=True), valid)
     bucket = torch.where(torch.isnan(flat_p), torch.zeros_like(bucket), bucket)
-    w = target.to(torch.float32)
+    w = (target != 0).reshape(-1).to(torch.int64)
     cls = torch.arange(c, device=preds.device).repeat(n)
-    vals = torch.stack([w.reshape(-1), torch.ones(n * c, dtype=torch.float32, device=preds.device)], dim=-1)
-    hist = torch.zeros((c * (t + 1), 2), dtype=torch.float32, device=preds.device)
+    vals = torch.stack([w, torch.ones_like(w)], dim=-1)
+    hist = torch.zeros((c * (t + 1), 2), dtype=torch.int64, device=preds.device)
     hist.index_add_(0, cls * (t + 1) + bucket, vals)
-    hist = hist.reshape(c, t + 1, 2)
-    suffix = torch.flip(torch.cumsum(torch.flip(hist, [1]), dim=1), [1])
-    tp = suffix[:, 1:, 0]
-    cnt = suffix[:, 1:, 1]
-    pos = w.sum(0)[:, None]
-    return tp, cnt - tp, pos - tp
+    suffix = torch.flip(torch.cumsum(torch.flip(hist.reshape(c, t + 1, 2), [1]), dim=1), [1])
+    tp = torch.empty((c, t), dtype=torch.int64, device=preds.device)
+    cnt = torch.empty_like(tp)
+    tp[:, order] = suffix[:, 1:, 0]
+    cnt[:, order] = suffix[:, 1:, 1]
+    pos = suffix[:, :1, 0]
+    return tp.to(torch.float32), (cnt - tp).to(torch.float32), (pos - tp).to(torch.float32)
+
+
+def _table_bytes(t: int) -> int:
+    """The sort's permutation and the sorted thresholds, NaN-padded to T + P/2
+    entries (P the power of two >= T) with one word of padding after every
+    32: the part of a histogram block's shared memory outside its bins."""
+    padded = t + (1 << max(0, (t - 1).bit_length())) // 2
+    return 4 * t + 4 * (padded + padded // 32 + 1)
+
+
+def _hist_smem_bytes(t: int, class_tile: int) -> int:
+    """Shared memory of one histogram block (``hist_smem_bytes`` in the .cu):
+    max(P, tile * (T+1)) 8-byte words (the sort keys, then the bins) and the
+    tables."""
+    return 8 * max(1 << max(0, (t - 1).bit_length()), class_tile * (t + 1)) + _table_bytes(t)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n: int, c: int, t: int, smem_limit: int, sm_count: int, design: Optional[str] = None) -> Tuple[str, int, int]:
+    """``(design, class_tile, rows_per_block)`` for the kernel, from the shapes
+    and the card alone (no device read).
+
+    The histogram takes every shape whose tables fit a block's opt-in shared
+    memory (``smem_limit``). Its grid is one wave, at most one block per SM,
+    and no more blocks than give each thread about eight elements. Class
+    tiles come first: a tile is a multiple of eight classes where ``C`` is
+    (whole 32-byte sectors of a row, 16-byte loads), else of four where ``C``
+    is, and row blocks split the rows only when the class tiles do not fill
+    the wave, with at least about four rows per bin in a row block, so that
+    a block's flush stays small against its work. One row block needs no
+    scratch and no merge. The compare kernel takes the rest (more than about
+    8192 thresholds), with row chunks of 32 to 256 rows and about four blocks
+    per SM. ``design`` forces one of the two; forcing the histogram where it
+    does not fit raises.
+    """
+    if design not in (None, "histogram", "compare"):
+        raise ValueError(f"binned_stats kernel: unknown design {design!r}")
+    budget = smem_limit - _SMEM_RESERVE
+    if design != "compare" and _hist_smem_bytes(t, 1) <= budget:
+        blocks = max(1, min(sm_count, -(-n * c // (8 * _THREADS))))
+        tile = -(-c // blocks)
+        max_tile = (budget - _table_bytes(t)) // (8 * (t + 1))
+        for width in (8, 4):
+            if c % width == 0 and max_tile >= width:
+                tile = -(-tile // width) * width
+                max_tile -= max_tile % width
+                break
+        tile = max(1, min(tile, max_tile, c))
+        row_blocks = max(1, min(blocks // -(-c // tile), n // (4 * (t + 1))))
+        return "histogram", tile, -(-n // row_blocks)
+    if design == "histogram":
+        raise ValueError(f"binned_stats kernel: T={t} thresholds do not fit the histogram's shared memory")
+    want_x = max(1, (4 * sm_count) // -(-c // _COMPARE_TILE))
+    return "compare", _COMPARE_TILE, min(256, max(32, -(-n // want_x)))
+
+
+def _scratch_bytes(design: str, n: int, c: int, t: int, class_tile: int, rows_per_block: int) -> int:
+    """Device scratch of one launch (``scratch_bytes_needed`` in the .cu)."""
+    if design == "compare":
+        return 4 * (2 * c * t + c + -(-c // _COMPARE_TILE))
+    if -(-n // rows_per_block) <= 1:
+        return 0
+    return 8 * c * (t + 1) + 4 * -(-c // class_tile)
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,16 +162,12 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _rows_per_block(n: int, c: int, device: torch.device) -> int:
-    """Rows each block stages: about four blocks per SM, 32 to 256 rows."""
-    sms = _sm_count(device.index)
-    class_tiles = -(-c // 32)
-    want_x = max(1, (4 * sms) // class_tiles)
-    return min(256, max(32, -(-n // want_x)))
-
-
-def _binned_stats_kernel(preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor) -> Stats:
-    """The CUDA kernel: int32 counts, FP and FN formed here, cast to float32."""
+def _binned_stats_kernel(
+    preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor, design: Optional[str] = None
+) -> Stats:
+    """The CUDA kernel: one float32 ``[3, C, T]`` result, returned as three
+    views. ``design`` forces the histogram or the compare kernel (for
+    comparing the two); ``None`` lets :func:`_plan` pick."""
     global KERNEL_LAUNCHES
     for name, x in (("preds", preds), ("target", target), ("thresholds", thresholds)):
         if not x.is_cuda:
@@ -115,23 +194,29 @@ def _binned_stats_kernel(preds: torch.Tensor, target: torch.Tensor, thresholds: 
     if c * t >= 2**31 or n >= 2**31:
         raise ValueError(f"binned_stats kernel: shape (N={n}, C={c}, T={t}) exceeds int32 counts")
     device = preds.device
-    counts = torch.zeros(2 * c * t + c, dtype=torch.int32, device=device)
-    tp, cnt, pos = counts[: c * t].view(c, t), counts[c * t : 2 * c * t].view(c, t), counts[2 * c * t :]
-    if n and c and t:
-        from metrics_tpu_torch.ops._build import load_library
+    if not (n and c and t):
+        return torch.zeros((3, c, t), dtype=torch.float32, device=device).unbind(0)
+    from metrics_tpu_torch.ops._build import load_library
 
-        lib = load_library()
-        with torch.cuda.device(device):
-            err = lib.binned_stats_launch(
-                preds.data_ptr(), target.data_ptr(), _TARGET_KINDS[target.dtype], thresholds.data_ptr(),
-                n, c, t, _rows_per_block(n, c, device),
-                tp.data_ptr(), cnt.data_ptr(), pos.data_ptr(),
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-        if err != 0:
-            raise RuntimeError(f"binned_stats kernel launch failed with CUDA error {err}")
-        KERNEL_LAUNCHES += 1
-    return tp.to(torch.float32), (cnt - tp).to(torch.float32), (pos[:, None] - tp).to(torch.float32)
+    lib = load_library()
+    chosen, tile, rows = _plan(n, c, t, _SMEM_OPTIN, _sm_count(device.index), design=design)
+    nbytes = _scratch_bytes(chosen, n, c, t, tile, rows)
+    out = torch.empty((3, c, t), dtype=torch.float32, device=device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+    # the C entry launches on the current device's context: switch only when
+    # the tensors live on another card
+    switch = device.index != torch.cuda.current_device()
+    with torch.cuda.device(device) if switch else contextlib.nullcontext():
+        err = lib.binned_stats_launch(
+            preds.data_ptr(), target.data_ptr(), _TARGET_KINDS[target.dtype], thresholds.data_ptr(),
+            n, c, t, _DESIGNS[chosen], tile, rows,
+            scratch.data_ptr() if nbytes else None, nbytes, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"binned_stats kernel ({chosen}) launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out.unbind(0)
 
 
 def binned_stat_scores(
@@ -147,10 +232,10 @@ def binned_stat_scores(
         target: ``[N, C]`` binary labels (float32, int32 or int64 on CUDA).
         thresholds: ``[T]`` decision thresholds, in any order.
         use_kernel: ``None`` picks by device: a CUDA tensor launches the CUDA
-            kernel (no fallback), a CPU tensor takes the bucket form when the
-            thresholds ascend and the compare form otherwise. ``True`` demands
-            the kernel and raises on a CPU tensor. ``False`` forces the compare
-            form, on either device — the oracle the kernel is held against.
+            kernel (no fallback), a CPU tensor takes the bucket form.
+            ``True`` demands the kernel and raises on a CPU tensor. ``False``
+            forces the compare form, on either device — the oracle the kernel
+            is held against.
 
     Returns:
         Three ``[C, T]`` float32 tensors: true positives, false positives and
@@ -164,7 +249,4 @@ def binned_stat_scores(
         raise ValueError(
             "binned_stat_scores(use_kernel=True) needs CUDA tensors; the kernel does not run on the CPU"
         )
-    thr = thresholds.to(torch.float32)
-    if bool(torch.all(thr[1:] >= thr[:-1])):
-        return _binned_stats_bucket(preds, target, thresholds)
-    return _binned_stats_compare(preds, target, thresholds)
+    return _binned_stats_bucket(preds, target, thresholds)

@@ -83,21 +83,80 @@ def _forbid_bucket(monkeypatch):
     monkeypatch.setattr(binned_stats, "_binned_stats_bucket", boom)
 
 
-def test_unsorted_thresholds_take_the_compare_form(monkeypatch):
+def _spy_bucket(monkeypatch):
+    called = []
+    real = binned_stats._binned_stats_bucket
+    monkeypatch.setattr(binned_stats, "_binned_stats_bucket", lambda *a: called.append(1) or real(*a))
+    return called
+
+
+def test_unsorted_thresholds_take_the_bucket_form(monkeypatch):
+    # the bucket form sorts the thresholds itself: no sortedness check on the host
     preds, target, thresholds = _data(200, 3, 40)
     thresholds = np.random.RandomState(1).permutation(thresholds)
-    _forbid_bucket(monkeypatch)
+    called = _spy_bucket(monkeypatch)
     got = binned_stats.binned_stat_scores(
         torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds)
     )
+    assert called == [1]
     _assert_equal(got, _jax_oracle(preds, target, thresholds))
+
+
+def _scrambled_thresholds(t, seed):
+    """The ascending grid permuted, with a duplicate and two NaNs planted."""
+    rng = np.random.RandomState(seed)
+    thresholds = rng.permutation(np.linspace(0, 1, t).astype(np.float32))
+    return np.concatenate([thresholds, thresholds[:1], np.array([np.nan, np.nan], np.float32)])[rng.permutation(t + 3)]
+
+
+@pytest.mark.parametrize("n,c,t", SHAPES)
+def test_permuted_bucket_form_bit_exact_vs_jax_oracle(n, c, t):
+    preds, target, _ = _data(n, c, t)
+    thresholds = _scrambled_thresholds(t, seed=n)
+    assert np.isnan(thresholds).sum() == 2
+    got = binned_stats._binned_stats_bucket(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds))
+    _assert_equal(got, _jax_oracle(preds, target, thresholds))
+
+
+# (N, C, T) -> (design, class tile, rows per block) on a card with 132 SMs and
+# 227 KB of opt-in shared memory per block: an H100 SXM
+H100 = dict(smem_limit=binned_stats._SMEM_OPTIN, sm_count=132)
+PLANS = {
+    # the main path's binned update: a block per class, no merge
+    (2048, 10, 100): ("histogram", 1, 2048),
+    # the JAX package's binned benchmark: whole rows, 127 row blocks
+    (65536, 8, 128): ("histogram", 8, 517),
+    # an ImageNet-1k eval batch: 125 tiles of 8 classes, no merge
+    (2048, 1000, 100): ("histogram", 8, 2048),
+    # tables above 48 KB of shared memory
+    (256, 4, 5000): ("histogram", 4, 256),
+    # thresholds too many for the histogram's tables
+    (64, 3, 16000): ("compare", 32, 32),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(PLANS))
+def test_plan_is_a_function_of_the_shapes(shape):
+    n, c, t = shape
+    design, tile, rows = binned_stats._plan(n, c, t, **H100)
+    assert (design, tile, rows) == PLANS[shape]
+    if design == "histogram":
+        assert binned_stats._hist_smem_bytes(t, tile) <= H100["smem_limit"] - binned_stats._SMEM_RESERVE
+        one_row_block = rows >= n
+        assert (binned_stats._scratch_bytes(design, n, c, t, tile, rows) == 0) == one_row_block
+
+
+def test_plan_forcing_a_design():
+    assert binned_stats._plan(2048, 10, 100, design="compare", **H100)[0] == "compare"
+    with pytest.raises(ValueError, match="shared memory"):
+        binned_stats._plan(64, 3, 16000, design="histogram", **H100)
+    with pytest.raises(ValueError, match="unknown design"):
+        binned_stats._plan(64, 3, 100, design="bitonic", **H100)
 
 
 def test_ascending_thresholds_take_the_bucket_form_on_cpu(monkeypatch):
     preds, target, thresholds = _data(64, 2, 9)
-    called = []
-    real = binned_stats._binned_stats_bucket
-    monkeypatch.setattr(binned_stats, "_binned_stats_bucket", lambda *a: called.append(1) or real(*a))
+    called = _spy_bucket(monkeypatch)
     binned_stats.binned_stat_scores(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(thresholds))
     assert called == [1]
 
@@ -149,16 +208,20 @@ def test_linspace_like_reference_is_bitwise_jnp_linspace(t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("target_dtype", [torch.float32, torch.int64])
-@pytest.mark.parametrize("n,c,t", SHAPES + [(2048, 10, 100)])
-def test_kernel_matches_compare_form_on_the_card(n, c, t, target_dtype):
+@pytest.mark.parametrize("design", [None, "compare"])
+@pytest.mark.parametrize("thresholds,target_dtype", [("ascending", torch.float32), ("scrambled", torch.int64)])
+@pytest.mark.parametrize("n,c,t", SHAPES + [(2048, 10, 100), (300, 1000, 100)])
+def test_kernel_matches_compare_form_on_the_card(n, c, t, thresholds, target_dtype, design):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    preds, target, thresholds = (torch.from_numpy(a).cuda() for a in _data(n, c, t, plant_nan=True))
+    preds, target, thr = _data(n, c, t, plant_nan=True)
+    if thresholds == "scrambled":
+        thr = _scrambled_thresholds(t, seed=c)
+    preds, target, thr = (torch.from_numpy(a).cuda() for a in (preds, target, thr))
     target = target.to(target_dtype)
     launches = binned_stats.KERNEL_LAUNCHES
-    got = binned_stats.binned_stat_scores(preds, target, thresholds)
-    want = binned_stats.binned_stat_scores(preds, target, thresholds, use_kernel=False)
+    got = binned_stats._binned_stats_kernel(preds, target, thr, design=design)
+    want = binned_stats.binned_stat_scores(preds, target, thr, use_kernel=False)
     torch.cuda.synchronize()
     assert binned_stats.KERNEL_LAUNCHES == launches + 1
     for g, w in zip(got, want):
