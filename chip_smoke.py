@@ -16,8 +16,16 @@
 5. drives the binned collection, ``BinnedAveragePrecision`` +
    ``BinnedRecallAtFixedPrecision`` (10 classes, 100 thresholds), the same
    way, and checks that every update went through the CUDA kernel;
-6. prints one JSON line describing the kernels, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+6. drives the report collection at ImageNet-1k eval width (macro
+   Precision/Recall/F1/Specificity, ConfusionMatrix, MatthewsCorrcoef,
+   CohenKappa over 1000 classes, HammingDistance) for 16 ``forward`` steps of
+   [2048, 1000] probabilities, and a ``CompositionalMetric``
+   ``2 * (p * r) / (p + r)``, each held against the same run on the CPU;
+7. drives the segmentation collection at Cityscapes val resolution (IoU and
+   ConfusionMatrix over 19 classes, plus ``dice_score`` per step) for 4 steps
+   of [1, 19, 1024, 2048] probabilities, held against the CPU run;
+8. profiles a step of each collection, then prints one JSON line describing
+   the kernels, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last
 line. Without CUDA it exits with code 2 and prints no result.
@@ -40,6 +48,13 @@ FP32_OPS_PER_S = 67e12
 TEST_SHAPES = [(37, 3, 100), (256, 10, 5), (5, 1, 1), (1000, 17, 130), (64, 130, 20)]
 SLICE_SHAPES = [(BATCH, NUM_CLASSES, THRESHOLDS), (65536, 8, 128), (2048, 1000, 100)]
 VALUE_ATOL = 1e-6  # float32 values reduced in another order on the card
+# report and segmentation phases: ImageNet-1k eval width, Cityscapes val at
+# full resolution with its 19 evaluation classes
+REPORT_CLASSES, SEG_CLASSES, SEG_STEPS, SEG_HW = 1000, 19, 4, (1024, 2048)
+# kappa = 1 - a / b, with a and b float32 sums over the 1e6 cells of the
+# [1000, 1000] matrix, summed in another order on the card: each sum may move
+# by ~log2(1e6) * 2**-24 = 1.2e-6 of itself, so a / b (about 1) by twice that
+VALUE_ATOL_BY_METRIC = {"kappa": 1e-5}
 
 
 def _phase(name: str) -> None:
@@ -147,26 +162,30 @@ def _bound(n: int, c: int, t: int):
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
 
 
-def _run_collection(make, batches, device):
-    """``STEPS`` forward calls, then ``compute()``; returns the collection,
-    its values, the host-clock ms of each step and of the compute."""
+def _run_collection(make, batches, device, per_step=None):
+    """One forward call per batch (and ``per_step(preds, target)`` in the
+    same step, when given), then ``compute()``; returns the collection, its
+    values, the host-clock ms of each step and of the compute, and what
+    ``per_step`` returned at each step."""
     mc = make(device)
     preds, target = batches
     preds, target = preds.to(device), target.to(device)
     torch.cuda.synchronize()
-    step_ms = []
-    for i in range(STEPS):
+    step_ms, extra = [], []
+    for i in range(len(preds)):
         t0 = time.perf_counter()
         mc(preds[i], target[i])
+        if per_step is not None:
+            extra.append(per_step(preds[i], target[i]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
     values = mc.compute()
     torch.cuda.synchronize()
-    return mc, values, step_ms, (time.perf_counter() - t0) * 1e3
+    return mc, values, step_ms, (time.perf_counter() - t0) * 1e3, extra
 
 
-def _profile(make, batches, device, step_ms, steps=4):
+def _profile(make, batches, device, step_ms, steps=4, per_step=None):
     """Where a steady-state step's time goes: the device time of the kernels
     a step launches, against the unprofiled host-clock step ``step_ms``, and
     the host calls that take longest (these are inflated by the profiler)."""
@@ -180,6 +199,8 @@ def _profile(make, batches, device, step_ms, steps=4):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(1, steps + 1):
             mc(preds[i], target[i])
+            if per_step is not None:
+                per_step(preds[i], target[i])
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
@@ -199,26 +220,42 @@ def _profile(make, batches, device, step_ms, steps=4):
         print(f"  host   {r.self_cpu_time_total / steps:8.2f} us/step {r.count / steps:5.1f}/step  {r.key[:90]}")
 
 
+def _step_peak_mib(make, batch, device, per_step=None):
+    """Device memory one step allocates at its peak above what was allocated
+    before it (inputs on the card, a fresh collection), in MiB."""
+    mc = make(device)
+    preds, target = batch[0].to(device), batch[1].to(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mc(preds, target)
+    if per_step is not None:
+        per_step(preds, target)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
 def _to_cpu(v):
     if isinstance(v, (list, tuple)):
         return [_to_cpu(x) for x in v]
     return v.detach().cpu()
 
 
-def _check_values(name, got, want):
+def _check_values(name, got, want, atol=VALUE_ATOL):
+    """Same shape, finite, equal (integers) or within ``atol`` (floats);
+    returns the largest float difference."""
     got, want = _to_cpu(got), _to_cpu(want)
     if isinstance(want, list):
         assert len(got) == len(want), name
-        for g, w in zip(got, want):
-            _check_values(name, g, w)
-        return
+        return max([_check_values(name, g, w, atol) for g, w in zip(got, want)], default=0.0)
     assert got.shape == want.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}"
     assert bool(torch.isfinite(got).all()), f"{name}: non-finite values {got}"
     if got.is_floating_point():
         err = float((got - want).abs().max()) if got.numel() else 0.0
-        assert err <= VALUE_ATOL, f"{name}: max abs err {err} > {VALUE_ATOL}"
-    else:
-        assert torch.equal(got, want), f"{name}: {got} vs {want}"
+        assert err <= atol, f"{name}: max abs err {err} > {atol}"
+        return err
+    assert torch.equal(got, want), f"{name}: {got} vs {want}"
+    return 0.0
 
 
 def _check_states(mc_gpu, mc_cpu):
@@ -234,12 +271,22 @@ def main() -> int:
         return 2
 
     from metrics_tpu_torch import (
+        F1,
         Accuracy,
         BinnedAveragePrecision,
         BinnedRecallAtFixedPrecision,
+        CohenKappa,
+        ConfusionMatrix,
+        HammingDistance,
+        IoU,
+        MatthewsCorrcoef,
         MetricCollection,
+        Precision,
+        Recall,
+        Specificity,
         StatScores,
     )
+    from metrics_tpu_torch.functional import dice_score
     from metrics_tpu_torch.ops import _build, binned_stats
 
     _phase("device")
@@ -349,8 +396,8 @@ def main() -> int:
         })
 
     _run_collection(flagship, (probs, labels), device)  # warm-up: loads the CUDA modules
-    mc_gpu, v_gpu, step_ms, compute_ms = _run_collection(flagship, (probs, labels), device)
-    mc_cpu, v_cpu, _, _ = _run_collection(flagship, (probs, labels), "cpu")
+    mc_gpu, v_gpu, step_ms, compute_ms, _ = _run_collection(flagship, (probs, labels), device)
+    mc_cpu, v_cpu, _, _, _ = _run_collection(flagship, (probs, labels), "cpu")
     _check_states(mc_gpu, mc_cpu)
     for key in v_cpu:
         _check_values(key, v_gpu[key], v_cpu[key])
@@ -371,10 +418,10 @@ def main() -> int:
 
     _run_collection(binned, (probs, labels), device)  # warm-up
     binned_stats.KERNEL_LAUNCHES = 0
-    mc_gpu, v_gpu, step_ms, compute_ms = _run_collection(binned, (probs, labels), device)
+    mc_gpu, v_gpu, step_ms, compute_ms, _ = _run_collection(binned, (probs, labels), device)
     launches = binned_stats.KERNEL_LAUNCHES
     assert launches == 2 * STEPS, f"binned_stats kernel launched {launches} times, expected {2 * STEPS}"
-    mc_cpu, v_cpu, _, _ = _run_collection(binned, (probs, labels), "cpu")
+    mc_cpu, v_cpu, _, _, _ = _run_collection(binned, (probs, labels), "cpu")
     _check_states(mc_gpu, mc_cpu)
     for key in v_cpu:
         _check_values(key, v_gpu[key], v_cpu[key])
@@ -383,10 +430,93 @@ def main() -> int:
           "states equal to the CPU run, values within 1e-6")
     binned_step_ms = float(np.median(step_ms))
 
+    _phase("report collection: Precision/Recall/F1/Specificity (macro), ConfusionMatrix, MCC, kappa, Hamming "
+           f"over {REPORT_CLASSES} classes")
+    rng = np.random.RandomState(1)
+    report_probs = torch.from_numpy(rng.rand(STEPS, BATCH, REPORT_CLASSES).astype(np.float32))
+    report_labels = torch.from_numpy(rng.randint(0, REPORT_CLASSES, (STEPS, BATCH)))
+
+    def report(dev):
+        k = dict(num_classes=REPORT_CLASSES, device=dev)
+        return MetricCollection({
+            "prec": Precision(average="macro", **k),
+            "rec": Recall(average="macro", **k),
+            "f1": F1(average="macro", **k),
+            "spec": Specificity(average="macro", **k),
+            "confmat": ConfusionMatrix(REPORT_CLASSES, normalize="true", device=dev),
+            "mcc": MatthewsCorrcoef(REPORT_CLASSES, device=dev),
+            "kappa": CohenKappa(REPORT_CLASSES, device=dev),
+            "hamming": HammingDistance(device=dev),
+        })
+
+    _run_collection(report, (report_probs, report_labels), device)  # warm-up
+    mc_gpu, v_gpu, step_ms, compute_ms, _ = _run_collection(report, (report_probs, report_labels), device)
+    mc_cpu, v_cpu, _, _, _ = _run_collection(report, (report_probs, report_labels), "cpu")
+    _check_states(mc_gpu, mc_cpu)
+    errs = {key: _check_values(key, v_gpu[key], v_cpu[key], VALUE_ATOL_BY_METRIC.get(key, VALUE_ATOL)) for key in v_cpu}
+    assert v_gpu["confmat"].shape == (REPORT_CLASSES, REPORT_CLASSES) and mc_gpu["confmat"].confmat.dtype == torch.int64
+    print(f"forward step on the card (host clock, after a warm-up run): median {np.median(step_ms):.4f} ms, "
+          f"max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; states equal to the CPU run; max abs err "
+          f"against it {errs}; values " + ", ".join(f"{k} {float(v_gpu[k]):.6g}" for k in v_gpu if k != "confmat"))
+    report_step_ms = float(np.median(step_ms))
+    print(f"peak device memory of a step above its inputs: "
+          f"{_step_peak_mib(report, (report_probs[0], report_labels[0]), device):.1f} MiB")
+
+    def composed(dev):
+        p = Precision(average="macro", num_classes=REPORT_CLASSES, device=dev)
+        r = Recall(average="macro", num_classes=REPORT_CLASSES, device=dev)
+        return p, r, 2 * (p * r) / (p + r)
+
+    comp_values = {}
+    for dev in (device, "cpu"):
+        p, r, comp = composed(dev)
+        assert comp.device == torch.device(dev)
+        preds, target = report_probs.to(dev), report_labels.to(dev)
+        for i in range(STEPS):
+            comp(preds[i], target[i])
+        value, pv, rv = comp.compute(), p.compute(), r.compute()
+        assert torch.equal(value, 2 * (pv * rv) / (pv + rv)), f"composite on {dev}: {value} vs its operands' values"
+        comp_values[str(dev)] = value
+    comp_err = _check_values("2 * (p * r) / (p + r)", comp_values[str(device)], comp_values["cpu"])
+    print(f"CompositionalMetric 2 * (p * r) / (p + r) over macro Precision/Recall: {float(comp_values['cpu']):.6g}, "
+          f"equal to the value composed from p and r on each device; max abs err card vs CPU {comp_err}")
+
+    _phase(f"segmentation collection: IoU + ConfusionMatrix over {SEG_CLASSES} classes, dice_score, at "
+           f"{SEG_HW[0]}x{SEG_HW[1]}")
+    rng = np.random.RandomState(2)
+    seg_probs = torch.from_numpy(rng.rand(SEG_STEPS, 1, SEG_CLASSES, *SEG_HW).astype(np.float32))
+    seg_labels = torch.from_numpy(rng.randint(0, SEG_CLASSES, (SEG_STEPS, 1, *SEG_HW)))
+
+    def segmentation(dev):
+        return MetricCollection({
+            "iou": IoU(num_classes=SEG_CLASSES, device=dev),
+            "confmat": ConfusionMatrix(SEG_CLASSES, device=dev),
+        })
+
+    _run_collection(segmentation, (seg_probs[:1], seg_labels[:1]), device, dice_score)  # warm-up
+    mc_gpu, v_gpu, step_ms, compute_ms, dice_gpu = _run_collection(
+        segmentation, (seg_probs, seg_labels), device, dice_score)
+    mc_cpu, v_cpu, _, _, dice_cpu = _run_collection(segmentation, (seg_probs, seg_labels), "cpu", dice_score)
+    _check_states(mc_gpu, mc_cpu)
+    errs = {key: _check_values(key, v_gpu[key], v_cpu[key]) for key in v_cpu}
+    errs["dice"] = _check_values("dice_score", dice_gpu, dice_cpu)
+    assert int(v_gpu["confmat"].sum()) == SEG_STEPS * SEG_HW[0] * SEG_HW[1], "pixels lost from the confusion matrix"
+    print(f"step on the card (forward of both + dice_score; host clock, after a warm-up step): median "
+          f"{np.median(step_ms):.4f} ms, max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; states equal to "
+          f"the CPU run; max abs err against it {errs}; mIoU {float(v_gpu['iou']):.6f}, dice "
+          f"{[round(float(d), 6) for d in dice_gpu]}")
+    seg_step_ms = float(np.median(step_ms))
+    print(f"peak device memory of a step above its inputs: "
+          f"{_step_peak_mib(segmentation, (seg_probs[0], seg_labels[0]), device, dice_score):.1f} MiB")
+
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):
         print(f"{name} collection:")
         _profile(make, (probs, labels), device, ms_step)
+    print("report collection:")
+    _profile(report, (report_probs, report_labels), device, report_step_ms)
+    print("segmentation collection (with dice_score):")
+    _profile(segmentation, (seg_probs, seg_labels), device, seg_step_ms, steps=SEG_STEPS - 1, per_step=dice_score)
 
     main = timings[SLICE_SHAPES[0]]
     kernels = [{

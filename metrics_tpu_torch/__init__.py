@@ -12,21 +12,42 @@ raises.
 __version__ = "0.1.0"
 
 from metrics_tpu_torch.classification import (
+    F1,
     Accuracy,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
+    CohenKappa,
+    ConfusionMatrix,
+    FBeta,
+    HammingDistance,
+    IoU,
+    MatthewsCorrcoef,
+    Precision,
+    Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.core.collections import MetricCollection
-from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 
 __all__ = [
     "Accuracy",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CohenKappa",
+    "CompositionalMetric",
+    "ConfusionMatrix",
+    "F1",
+    "FBeta",
+    "HammingDistance",
+    "IoU",
+    "MatthewsCorrcoef",
     "Metric",
     "MetricCollection",
+    "Precision",
+    "Recall",
+    "Specificity",
     "StatScores",
 ]

@@ -1,4 +1,4 @@
 from metrics_tpu_torch.core.collections import MetricCollection
-from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 
-__all__ = ["Metric", "MetricCollection"]
+__all__ = ["CompositionalMetric", "Metric", "MetricCollection"]

@@ -4,7 +4,9 @@ Counterpart of ``metrics_tpu/core/metric.py`` (the contract subset): states
 declared with :meth:`Metric.add_state`, the update/compute wrappers with the
 compute cache and the compute-before-update warning, ``forward`` (batch value
 plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
-``reset``, ``clone``, ``state_dict``/``load_state_dict`` and pickling.
+``reset``, ``clone``, ``state_dict``/``load_state_dict``, pickling,
+``set_dtype`` with its per-update persistence, the operator overloads and
+:class:`CompositionalMetric`.
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
 states are registered buffers (so ``.to()``/``.cuda()`` move them), list
@@ -30,6 +32,43 @@ from metrics_tpu_torch.utils.exceptions import (
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "cat", "max", "min")
+
+
+# module-level named operators: picklable, unlike lambdas
+def _add(a, b): return torch.add(a, b)                # noqa: E704
+def _sub(a, b): return torch.sub(a, b)                # noqa: E704
+def _mul(a, b): return torch.mul(a, b)                # noqa: E704
+def _div(a, b): return torch.true_divide(a, b)        # noqa: E704
+def _floordiv(a, b): return torch.floor_divide(a, b)  # noqa: E704
+def _mod(a, b): return torch.remainder(a, b)          # noqa: E704
+def _pow(a, b): return torch.pow(a, b)                # noqa: E704
+def _matmul(a, b): return torch.matmul(a, b)          # noqa: E704
+def _and(a, b): return torch.bitwise_and(a, b)        # noqa: E704
+def _or(a, b): return torch.bitwise_or(a, b)          # noqa: E704
+def _xor(a, b): return torch.bitwise_xor(a, b)        # noqa: E704
+def _eq(a, b): return torch.eq(a, b)                  # noqa: E704
+def _ne(a, b): return torch.ne(a, b)                  # noqa: E704
+def _lt(a, b): return torch.lt(a, b)                  # noqa: E704
+def _le(a, b): return torch.le(a, b)                  # noqa: E704
+def _gt(a, b): return torch.gt(a, b)                  # noqa: E704
+def _ge(a, b): return torch.ge(a, b)                  # noqa: E704
+def _abs(x): return torch.abs(x)                      # noqa: E704
+def _neg(x): return torch.neg(x)                      # noqa: E704
+def _logical_not(x): return torch.logical_not(x)      # noqa: E704
+
+
+def _getitem(x: Any, idx: Any) -> Any:
+    return x[idx]
+
+
+def _cast_floating(state: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """Cast every floating tensor of a state dict (list states item by item)
+    to ``dtype``; the per-update re-cast of ``set_dtype``."""
+
+    def cast(x: torch.Tensor) -> torch.Tensor:
+        return x.to(dtype) if x.is_floating_point() else x
+
+    return {k: [cast(x) for x in v] if isinstance(v, list) else cast(v) for k, v in state.items()}
 
 
 def _copy_state_value(v: Any) -> Any:
@@ -77,6 +116,14 @@ class Metric(nn.Module):
     then implement ``update(*batch)`` (assign to ``self.<state>``) and
     ``compute()``.
 
+    **Composition.** The arithmetic, bitwise and comparison operators build
+    a :class:`CompositionalMetric`, as in the JAX package, ``__eq__`` and
+    ``__pos__`` (which is ``abs``) included. Unlike the JAX package, which
+    hashes the state bytes, a metric hashes by identity: ``nn.Module`` keeps
+    modules in sets (``children()``, ``named_modules()``, and so ``.to()``),
+    and two members with equal states would otherwise be taken for one,
+    since ``==`` returns a (truthy) metric.
+
     Args:
         compute_on_step: return the batch value from ``forward``.
         dist_sync_on_step: sync state across processes when computing the
@@ -115,6 +162,7 @@ class Metric(nn.Module):
         self._to_sync = True
         self._is_synced = False
         self._cache: Optional[Dict[str, Any]] = None
+        self._dtype: Optional[torch.dtype] = None
 
     # ------------------------------------------------------------------
     # state declaration
@@ -178,8 +226,40 @@ class Metric(nn.Module):
                 this._defaults[name] = fn(default)
             else:
                 setattr(this, name, [fn(v) for v in getattr(this, name)])
-        this._device = fn(torch.zeros(0, device=this._device)).device
+        # a cast of every floating dtype to one (``half()``, ``.to(dtype)``,
+        # ``set_dtype``, also from a parent module) is recorded, so that the
+        # update wrapper re-casts after every update
+        lo, hi = (fn(torch.zeros(0, dtype=d, device=this._device)) for d in (torch.float16, torch.float64))
+        if lo.dtype == hi.dtype:
+            this._dtype = lo.dtype
+        this._device = lo.device
         return this
+
+    def set_dtype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the floating states (and every other floating tensor of the
+        module, as ``nn.Module.half()`` does) to ``dtype``, and keep them
+        there: the update wrapper re-casts after each update, since
+        ``state + batch_stat`` promotes a half state back to float32.
+        Applies to nested metrics too. Counterpart of the JAX package's
+        ``set_dtype``, which truncates float64 to float32 without x64; here
+        float64 stays float64."""
+        return self._apply(lambda t: t.to(dtype) if t.is_floating_point() else t)
+
+    def type(self, dst_type: torch.dtype) -> "Metric":  # type: ignore[override]
+        """Alias of :meth:`set_dtype` (integer states keep their dtype)."""
+        return self.set_dtype(dst_type)
+
+    def half(self) -> "Metric":
+        """``set_dtype(torch.float16)``."""
+        return self.set_dtype(torch.float16)
+
+    def float(self) -> "Metric":
+        """``set_dtype(torch.float32)``."""
+        return self.set_dtype(torch.float32)
+
+    def double(self) -> "Metric":
+        """``set_dtype(torch.float64)``."""
+        return self.set_dtype(torch.float64)
 
     # ------------------------------------------------------------------
     # stateful API
@@ -488,6 +568,113 @@ class Metric(nn.Module):
             return kwargs
         return {k: v for k, v in kwargs.items() if k in names}
 
+    # ------------------------------------------------------------------
+    # identity and operator composition
+    # ------------------------------------------------------------------
+
+    def __hash__(self) -> int:
+        return id(self)
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_div, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_div, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_and, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_and, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_or, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_or, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_xor, other, self)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(_eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(_ne, self, other)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(_ge, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        # abs, not identity, as in the JAX package (and upstream TorchMetrics)
+        return CompositionalMetric(_abs, self, None)
+
+    def __invert__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_logical_not, self, None)
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(functools.partial(_getitem, idx=idx), self, None)
+
 
 def _wrap_update(update: Callable) -> Callable:
     @functools.wraps(update)
@@ -501,7 +688,10 @@ def _wrap_update(update: Callable) -> Callable:
         self._update_called = True
         self._update_count += 1
         with torch.no_grad():
-            return update(self, *args, **kwargs)
+            out = update(self, *args, **kwargs)
+        if self._dtype is not None:
+            self._restore(_cast_floating(self._state, self._dtype))
+        return out
 
     wrapped_func._wrapped = True  # type: ignore[attr-defined]
     return wrapped_func
@@ -526,3 +716,92 @@ def _wrap_compute(compute: Callable) -> Callable:
 
     wrapped_func._wrapped = True  # type: ignore[attr-defined]
     return wrapped_func
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic over metrics, built by the operator overloads of
+    :class:`Metric`: ``2 * (p * r) / (p + r)`` is a metric whose ``update``
+    feeds both operands and whose ``compute`` applies the operators to their
+    values. Counterpart of the JAX package's ``CompositionalMetric``.
+
+    An operand that appears at several places of the tree is updated once per
+    place, as in the JAX package. The composite lives where its metric
+    operands live (they must agree); constant operands become tensors there,
+    and ``.to()`` moves both, since operands are submodules and constants
+    buffers.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Precision, Recall
+        >>> p, r = Precision(device="cpu"), Recall(device="cpu")
+        >>> f1 = 2 * (p * r) / (p + r)
+        >>> _ = f1(torch.tensor([1, 0, 1, 1]), torch.tensor([1, 0, 0, 1]))
+        >>> round(float(f1.compute()), 4)
+        0.75
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, torch.Tensor],
+        metric_b: Union[Metric, float, int, torch.Tensor, None],
+    ) -> None:
+        devices = {m.device for m in (metric_a, metric_b) if isinstance(m, Metric)}
+        if len(devices) > 1:
+            raise ValueError(
+                f"The operands of a CompositionalMetric live on different devices: {sorted(map(str, devices))}"
+            )
+        super().__init__(device=devices.pop() if devices else None)
+        self.op = operator
+        for name, operand in (("metric_a", metric_a), ("metric_b", metric_b)):
+            if isinstance(operand, Metric):
+                setattr(self, name, operand)
+            else:
+                constant = None if operand is None else torch.as_tensor(operand, device=self.device)
+                self.register_buffer(name, constant, persistent=False)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        for operand in (self.metric_a, self.metric_b):
+            if isinstance(operand, Metric):
+                operand.update(*args, **operand._filtered_kwargs(kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a, val_b = (
+            operand(*args, **operand._filtered_kwargs(kwargs)) if isinstance(operand, Metric) else operand
+            for operand in (self.metric_a, self.metric_b)
+        )
+        # the operands accumulated; a later compute() must neither warn nor
+        # return a stale value
+        self._update_called = True
+        self._computed = None
+        if val_a is None:
+            return None
+        if val_b is None:
+            if isinstance(self.metric_b, Metric):
+                return None
+            self._forward_cache = self.op(val_a)
+            return self._forward_cache
+        self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        super().reset()
+        for operand in (self.metric_a, self.metric_b):
+            if isinstance(operand, Metric):
+                operand.reset()
+
+    def persistent(self, mode: bool = False) -> None:
+        for operand in (self.metric_a, self.metric_b):
+            if isinstance(operand, Metric):
+                operand.persistent(mode)
+
+    def __repr__(self) -> str:
+        op = getattr(self.op, "__name__", "op")
+        return f"{type(self).__name__}(\n  {op}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"

@@ -12,13 +12,18 @@ import torch
 from metrics_tpu_torch.utils.device import resolve_device
 
 
+# half-precision states (after the JAX metric's ``set_dtype``) keep their dtype
+_HALF = {"float16": torch.float16, "bfloat16": torch.bfloat16}
+
+
 def _tensor(x: Any, device: torch.device) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.kind in "iu":
         # the JAX package counts in int32 (x64 off); this package in int64
         return torch.as_tensor(arr.astype(np.int64), device=device)
-    if arr.dtype.kind == "f":
-        return torch.as_tensor(arr.astype(np.float32), device=device)
+    if arr.dtype.kind == "f" or arr.dtype.name in _HALF:
+        # widening to float32 is exact; a half state narrows back exactly
+        return torch.as_tensor(arr.astype(np.float32), device=device).to(_HALF.get(arr.dtype.name, torch.float32))
     return torch.as_tensor(arr, device=device)
 
 
@@ -27,8 +32,9 @@ def state_dict_from_reference(
 ) -> Dict[str, Any]:
     """Turn a ``metrics_tpu`` ``state_dict()`` into one for ``load_state_dict``.
 
-    Integer states become int64, floating states float32, list states stay
-    lists (of converted tensors). ``device=None`` means CUDA, as everywhere in
+    Integer states become int64, float16 and bfloat16 states keep their
+    dtype, other floating states become float32, list states stay lists (of
+    converted tensors). ``device=None`` means CUDA, as everywhere in
     this package.
     """
     dev = resolve_device(device)

@@ -1,12 +1,15 @@
 """Tensor utilities shared by every metric.
 
 Counterpart of ``metrics_tpu/utils/data.py``: the state reducers
-(``dim_zero_*``), one-hot encoding, top-k binarization and the threshold grid
-of the binned metrics.
+(``dim_zero_*``), one-hot encoding, top-k binarization, class inference, the
+confusion matrix's scatter count and the threshold grid of the binned
+metrics.
 """
 from typing import List, Optional, Union
 
 import torch
+
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 METRIC_EPS = 1e-6
 
@@ -59,6 +62,46 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
         idx = torch.topk(moved, topk, dim=-1).indices
         mask = torch.zeros(moved.shape, dtype=torch.long, device=moved.device).scatter_(-1, idx, 1)
     return torch.movedim(mask, -1, dim)
+
+
+def to_categorical(tensor: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probabilities/one-hot ``[N, C, ...]`` -> integer labels ``[N, ...]``."""
+    return torch.argmax(tensor, dim=argmax_dim)
+
+
+def get_num_classes(preds: torch.Tensor, target: torch.Tensor, num_classes: Optional[int] = None) -> int:
+    """Infer the number of classes from the data (reads two values on the
+    host), warning when ``num_classes`` disagrees with it."""
+    num_target_classes = int(torch.max(target)) + 1
+    num_pred_classes = int(torch.max(preds)) + 1
+    num_all_classes = max(num_target_classes, num_pred_classes)
+    if num_classes is None:
+        num_classes = num_all_classes
+    elif num_classes != num_all_classes:
+        rank_zero_warn(
+            f"You have set {num_classes} number of classes which is different from predicted "
+            f"({num_pred_classes}) and target ({num_target_classes}) number of classes",
+            RuntimeWarning,
+        )
+    return num_classes
+
+
+def _bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
+    """int64 counts of each value of ``x`` in ``[0, minlength)``, with the JAX
+    package's ``zeros(minlength).at[x].add(1)`` semantics: a negative index
+    wraps once (``-1`` counts into the last bin), and an index still outside
+    the range is dropped.
+
+    Unlike ``torch.bincount`` it never reads the data on the host, and it
+    never scatters out of range (on CUDA that is a device-side assert):
+    dropped indices add 0 to bin 0. Integer atomics commute, so the counts
+    are exact in any order.
+    """
+    x = x.reshape(-1).long()
+    x = torch.where(x < 0, x + minlength, x)
+    keep = (x >= 0) & (x < minlength)
+    out = torch.zeros(minlength, dtype=torch.long, device=x.device)
+    return out.index_add_(0, torch.where(keep, x, torch.zeros_like(x)), keep.long())
 
 
 def _linspace_like_reference(num: int) -> torch.Tensor:

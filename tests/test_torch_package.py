@@ -56,11 +56,29 @@ def test_kernel_sources_ship_with_the_package():
 
 DOCTEST_MODULES = [
     "metrics_tpu_torch.core.collections",
+    "metrics_tpu_torch.core.metric",
     "metrics_tpu_torch.classification.accuracy",
     "metrics_tpu_torch.classification.stat_scores",
     "metrics_tpu_torch.classification.binned_precision_recall",
+    "metrics_tpu_torch.classification.precision_recall",
+    "metrics_tpu_torch.classification.f_beta",
+    "metrics_tpu_torch.classification.specificity",
+    "metrics_tpu_torch.classification.hamming_distance",
+    "metrics_tpu_torch.classification.confusion_matrix",
+    "metrics_tpu_torch.classification.iou",
+    "metrics_tpu_torch.classification.cohen_kappa",
+    "metrics_tpu_torch.classification.matthews_corrcoef",
     "metrics_tpu_torch.functional.classification.accuracy",
     "metrics_tpu_torch.functional.classification.stat_scores",
+    "metrics_tpu_torch.functional.classification.precision_recall",
+    "metrics_tpu_torch.functional.classification.f_beta",
+    "metrics_tpu_torch.functional.classification.specificity",
+    "metrics_tpu_torch.functional.classification.hamming_distance",
+    "metrics_tpu_torch.functional.classification.confusion_matrix",
+    "metrics_tpu_torch.functional.classification.iou",
+    "metrics_tpu_torch.functional.classification.cohen_kappa",
+    "metrics_tpu_torch.functional.classification.matthews_corrcoef",
+    "metrics_tpu_torch.functional.classification.dice",
 ]
 
 
@@ -73,11 +91,31 @@ def test_docstring_examples_run(module):
     assert result.attempted > 0 and result.failed == 0, result
 
 
-@pytest.mark.parametrize("make", [
-    lambda **kw: port.Accuracy(num_classes=10, **kw),
-    lambda **kw: port.StatScores(reduce="macro", num_classes=10, **kw),
-    lambda **kw: port.BinnedAveragePrecision(num_classes=10, **kw),
-], ids=["Accuracy", "StatScores", "BinnedAveragePrecision"])
+DEFAULT_DEVICE_CASES = {
+    "Accuracy": lambda **kw: port.Accuracy(num_classes=10, **kw),
+    "StatScores": lambda **kw: port.StatScores(reduce="macro", num_classes=10, **kw),
+    "BinnedAveragePrecision": lambda **kw: port.BinnedAveragePrecision(num_classes=10, **kw),
+    "Precision": lambda **kw: port.Precision(num_classes=10, average="macro", **kw),
+    "Recall": lambda **kw: port.Recall(**kw),
+    "FBeta": lambda **kw: port.FBeta(beta=0.5, **kw),
+    "F1": lambda **kw: port.F1(**kw),
+    "Specificity": lambda **kw: port.Specificity(**kw),
+    "HammingDistance": lambda **kw: port.HammingDistance(**kw),
+    "ConfusionMatrix": lambda **kw: port.ConfusionMatrix(10, **kw),
+    "IoU": lambda **kw: port.IoU(10, **kw),
+    "CohenKappa": lambda **kw: port.CohenKappa(10, **kw),
+    "MatthewsCorrcoef": lambda **kw: port.MatthewsCorrcoef(10, **kw),
+    # a composite takes its operands' device
+    "CompositionalMetric": lambda **kw: port.Precision(**kw) * port.Recall(**kw) + 1.0,
+}
+
+
+def test_every_exported_metric_has_a_default_device_case():
+    metrics = {name for name in port.__all__ if name not in ("Metric", "MetricCollection")}
+    assert metrics - {"BinnedPrecisionRecallCurve", "BinnedRecallAtFixedPrecision"} == set(DEFAULT_DEVICE_CASES)
+
+
+@pytest.mark.parametrize("make", DEFAULT_DEVICE_CASES.values(), ids=DEFAULT_DEVICE_CASES.keys())
 def test_default_device_is_cuda(make):
     if torch.cuda.is_available():
         assert make().device.type == "cuda"
