@@ -24,7 +24,17 @@
 7. drives the segmentation collection at Cityscapes val resolution (IoU and
    ConfusionMatrix over 19 classes, plus ``dice_score`` per step) for 4 steps
    of [1, 19, 1024, 2048] probabilities, held against the CPU run;
-8. profiles a step of each collection, then prints one JSON line describing
+8. drives the curves collection at ImageNet-1k eval width: ``AUROC`` and
+   ``AveragePrecision`` (macro, 1000 classes) with ``with_capacity(49152)``
+   and ``CalibrationError(n_bins=15)``, 24 ``update`` steps of [2048, 1000]
+   softmax probabilities, then ``compute()``; times the steps and the
+   compute, profiles both (device busy share, kernels per step, host reads
+   inside ``compute()``, peak memory), runs the same collection with list
+   states, and a binary run (AUROC, AveragePrecision, ROC and
+   PrecisionRecallCurve on 2^20 scores with large tie groups) in both modes;
+   every state is held against the CPU run, and the two modes against each
+   other;
+9. profiles a step of each collection, then prints one JSON line describing
    the kernels, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last
@@ -55,6 +65,24 @@ REPORT_CLASSES, SEG_CLASSES, SEG_STEPS, SEG_HW = 1000, 19, 4, (1024, 2048)
 # [1000, 1000] matrix, summed in another order on the card: each sum may move
 # by ~log2(1e6) * 2**-24 = 1.2e-6 of itself, so a / b (about 1) by twice that
 VALUE_ATOL_BY_METRIC = {"kappa": 1e-5}
+# curves phase: ImageNet-1k eval width; 24 steps of 2048 = 49,152 of the
+# 50,000 validation images (cut to whole batches)
+CURVE_CLASSES, CURVE_STEPS, CURVE_CAPACITY = 1000, 24, 24 * BATCH
+BINARY_ROWS, BINARY_STEPS = 2 ** 20, 8
+# capacity mode, card vs CPU: per-class AUROC comes from exact integer rank
+# sums and per-class AP from float64 sums, so they agree to a float32 ulp;
+# the macro mean is a float32 sum over 1000 classes in another order, off by
+# at most log2(1000) * 2**-24 = 6e-7
+RANKING_ATOL = 1e-6
+# list mode against capacity mode (and list mode card vs CPU): the curve
+# path integrates in float32, one sum of up to 49,152 terms per class, off
+# by about log2(49152) * 2**-24 = 1e-6 of the value, plus the rounding of
+# the curve points; two such values differ by up to about 2e-6
+CURVE_ATOL = 3e-6
+# CalibrationError card vs CPU: per-bin float32 sums of ~3,300 confidences
+# in another order (12 roundings of 2**-24 each), for conf and acc both,
+# weighted by bin shares that sum to 1
+CE_ATOL = 2e-6
 
 
 def _phase(name: str) -> None:
@@ -263,6 +291,240 @@ def _check_states(mc_gpu, mc_cpu):
         for name, v in m_gpu._state.items():
             w = m_cpu._state[name]
             assert torch.equal(v.cpu(), w), f"state {key}.{name} differs between the card and the CPU"
+
+
+def _run_updates(mc, batches, device):
+    """``update`` per batch, host clock per step ending in a synchronize;
+    returns the step times in ms."""
+    preds, target = batches
+    step_ms = []
+    for i in range(len(preds)):
+        t0 = time.perf_counter()
+        mc.update(preds[i], target[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return step_ms
+
+
+def _fresh_compute(mc):
+    """``compute()`` again, not from the compute cache."""
+    for m in mc.values():
+        m._computed = None
+    return mc.compute()
+
+
+def _sync_events(prof):
+    from torch.autograd import DeviceType
+
+    # (the profiled code's own torch.cuda.synchronize() is a
+    # cudaDeviceSynchronize, not counted)
+    return [e for e in prof.events() if e.device_type == DeviceType.CPU and e.name == "cudaStreamSynchronize"]
+
+
+def _host_reads(prof):
+    """``cudaStreamSynchronize`` calls and device-to-host copies a profile
+    recorded."""
+    from torch.autograd import DeviceType
+
+    d2h = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA and "DtoH" in e.name)
+    return len(_sync_events(prof)), d2h
+
+
+def _sync_sources(prof, top=4):
+    """The outermost operators that the synchronizations of a profile ran
+    under, most frequent first."""
+    counts = {}
+    for e in _sync_events(prof):
+        outer = e
+        while getattr(outer, "cpu_parent", None) is not None:
+            outer = outer.cpu_parent
+        counts[outer.name] = counts.get(outer.name, 0) + 1
+    return sorted(counts.items(), key=lambda kv: -kv[1])[:top]
+
+
+def _profile_compute(mc):
+    """Host clock of a first and a second uncached ``compute()`` (the first
+    also grows the caching allocator), the host reads and device time of a
+    third, and the peak device memory above what was allocated before."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        values = _fresh_compute(mc)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _fresh_compute(mc)
+        torch.cuda.synchronize()
+    syncs, d2h = _host_reads(prof)
+    if syncs:
+        print(f"  synchronizations inside compute() ran under {_sync_sources(prof)}")
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    return values, ms, peak_mib, syncs, d2h, device_ms, len(kernels)
+
+
+def _profile_updates(make, batches, device, step_ms, steps=4):
+    """Device busy share and kernels per ``update`` step, over ``steps``
+    steps after a first one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mc = make(device)
+    preds, target = batches
+    mc.update(preds[0], target[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(1, steps + 1):
+            mc.update(preds[i], target[i])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    syncs, d2h = _host_reads(prof)
+    if not kernels:
+        return "the profiler recorded no device activity (busy share not measured)"
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels) / steps
+    return (f"device busy {busy_us:.2f} us/step in {len(kernels) / steps:.1f} kernels/step, "
+            f"{syncs / steps:.1f} cudaStreamSynchronize and {d2h / steps:.1f} DtoH copies/step; the unprofiled "
+            f"step takes {step_ms * 1e3:.2f} us, so the device is idle {100 * (1 - busy_us / (step_ms * 1e3)):.2f}%")
+
+
+def _state_rows(v):
+    """A cat state's rows: a CatBuffer's valid rows, a list's concatenation."""
+    from metrics_tpu_torch.utils.data import dim_zero_cat
+
+    return dim_zero_cat(v).cpu()
+
+
+def _check_cat_states(mc_a, mc_b, what):
+    for (key, m_a), (_, m_b) in zip(mc_a.items(), mc_b.items()):
+        for name, v in m_a._state.items():
+            w = m_b._state[name]
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v.cpu(), w.cpu()), f"state {key}.{name} differs ({what})"
+            else:
+                assert torch.equal(_state_rows(v), _state_rows(w)), f"state {key}.{name} differs ({what})"
+
+
+def _curves_phase(smi, device):
+    """The curves collection at ImageNet-1k width in capacity and list mode,
+    and the binary curve metrics on 2^20 tied scores in both modes."""
+    from metrics_tpu_torch import (
+        AUROC,
+        ROC,
+        AveragePrecision,
+        CalibrationError,
+        CatBuffer,
+        MetricCollection,
+        PrecisionRecallCurve,
+    )
+
+    rng = np.random.RandomState(3)
+    labels = rng.randint(0, CURVE_CLASSES, (CURVE_STEPS, BATCH))
+    logits = rng.randn(CURVE_STEPS, BATCH, CURVE_CLASSES).astype(np.float32)
+    # an informative model: the true class's logit is raised by 3
+    np.put_along_axis(logits, labels[..., None], np.take_along_axis(logits, labels[..., None], -1) + 3, -1)
+    probs = torch.softmax(torch.from_numpy(logits), dim=-1)
+    del logits
+    labels = torch.from_numpy(labels)
+
+    def curves(dev, capacity=True):
+        k = dict(num_classes=CURVE_CLASSES, average="macro", device=dev)
+        auroc, ap = AUROC(**k), AveragePrecision(**k)
+        if capacity:
+            auroc.with_capacity(CURVE_CAPACITY)
+            ap.with_capacity(CURVE_CAPACITY)
+        return MetricCollection({"auroc": auroc, "ap": ap, "ce": CalibrationError(n_bins=15, device=dev)})
+
+    print(f"{smi}; {CURVE_STEPS} update steps of [{BATCH}, {CURVE_CLASSES}] float32 softmax probabilities "
+          f"(RandomState(3)), capacity {CURVE_CAPACITY}: 49,152 of the 50,000 ILSVRC-2012 validation images")
+    batches = (probs.to(device), labels.to(device))
+    torch.cuda.synchronize()
+    results = {}
+    for mode in ("capacity", "list"):
+        make = (lambda dev: curves(dev)) if mode == "capacity" else (lambda dev: curves(dev, capacity=False))
+        warm = make(device)  # warm-up: the first updates load the CUDA modules
+        _run_updates(warm, (batches[0][:2], batches[1][:2]), device)
+        if mode == "capacity":
+            # (two batches leave classes without a positive, where a list-mode
+            # curve raises; its compute is timed cold)
+            warm.compute()
+        del warm
+        mc = make(device)
+        step_ms = _run_updates(mc, batches, device)
+        values, (cold_ms, compute_ms), peak_mib, syncs, d2h, device_ms, n_kernels = _profile_compute(mc)
+        if mode == "capacity":
+            assert all(isinstance(m.preds, CatBuffer) for m in (mc["auroc"], mc["ap"]))
+        step = float(np.median(step_ms))
+        print(f"{mode} mode: update step median {step:.4f} ms (max {max(step_ms):.4f}); compute first "
+              f"{cold_ms:.4f} ms, again {compute_ms:.4f} ms "
+              f"with {syncs} cudaStreamSynchronize and {d2h} DtoH copies, {n_kernels} device operations for "
+              f"{device_ms:.4f} ms of device time; peak device memory of compute {peak_mib:.1f} MiB above its "
+              f"inputs; values " + ", ".join(f"{k} {float(v):.7f}" for k, v in values.items()))
+        print(f"  update steps: {_profile_updates(make, batches, device, step)}")
+        mc_cpu = make("cpu")
+        for i in range(CURVE_STEPS):
+            mc_cpu.update(probs[i], labels[i])
+        t0 = time.perf_counter()
+        values_cpu = mc_cpu.compute()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        _check_cat_states(mc, mc_cpu, f"{mode} mode, card vs CPU")
+        atol = {"capacity": RANKING_ATOL, "list": CURVE_ATOL}[mode]
+        errs = {k: _check_values(k, values[k], values_cpu[k], CE_ATOL if k == "ce" else atol) for k in values}
+        print(f"  states equal to the CPU run; max abs err against it {errs} (CPU compute {cpu_ms:.1f} ms)")
+        results[mode] = dict(values=values, step_ms=step, compute_ms=compute_ms, cold_ms=cold_ms, syncs=syncs,
+                             d2h=d2h, peak_mib=peak_mib, device_ms=device_ms)
+        del mc, mc_cpu
+    errs = {k: _check_values(k, results["capacity"]["values"][k], results["list"]["values"][k],
+                             0.0 if k == "ce" else CURVE_ATOL) for k in results["list"]["values"]}
+    print(f"capacity mode vs list mode on the card: max abs err {errs}; compute "
+          f"{results['capacity']['compute_ms']:.4f} vs {results['list']['compute_ms']:.4f} ms, host reads "
+          f"(syncs, DtoH) {results['capacity']['syncs']}, {results['capacity']['d2h']} vs "
+          f"{results['list']['syncs']}, {results['list']['d2h']}")
+    del batches, probs, labels
+
+    rng = np.random.RandomState(4)
+    scores = np.round(rng.rand(BINARY_STEPS, BINARY_ROWS // BINARY_STEPS), 3).astype(np.float32)
+    hits = (rng.rand(*scores.shape) < scores).astype(np.int64)
+    scores, hits = torch.from_numpy(scores), torch.from_numpy(hits)
+
+    def binary(dev, capacity=True):
+        mc = MetricCollection({"auroc": AUROC(device=dev), "ap": AveragePrecision(device=dev),
+                               "roc": ROC(pos_label=1, device=dev), "pr": PrecisionRecallCurve(pos_label=1, device=dev)})
+        if capacity:
+            for m in mc.values():
+                m.with_capacity(BINARY_ROWS)
+        return mc
+
+    print(f"binary: {BINARY_ROWS} scores rounded to 1e-3 (1001 tie groups of ~1000), labels P(1) = score, "
+          f"{BINARY_STEPS} updates")
+    binary_values = {}
+    for mode in ("capacity", "list"):
+        mc = binary(device, capacity=mode == "capacity")
+        _run_updates(mc, (scores.to(device), hits.to(device)), device)
+        values, (cold_ms, compute_ms), peak_mib, syncs, d2h, device_ms, n_kernels = _profile_compute(mc)
+        mc_cpu = binary("cpu", capacity=mode == "capacity")
+        for i in range(BINARY_STEPS):
+            mc_cpu.update(scores[i], hits[i])
+        values_cpu = mc_cpu.compute()
+        _check_cat_states(mc, mc_cpu, f"binary {mode} mode, card vs CPU")
+        errs = {k: _check_values(k, values[k], values_cpu[k], RANKING_ATOL if k in ("auroc", "ap") else 0.0)
+                for k in values}
+        print(f"{mode} mode: compute first {cold_ms:.4f} ms, again {compute_ms:.4f} ms, {syncs} "
+              f"cudaStreamSynchronize, {d2h} DtoH, "
+              f"{n_kernels} device operations for {device_ms:.4f} ms, peak {peak_mib:.1f} MiB; auroc "
+              f"{float(values['auroc']):.7f}, ap {float(values['ap']):.7f}, {len(values['roc'][0])} ROC points; "
+              f"states equal to the CPU run, max abs err {errs} (curves exact)")
+        binary_values[mode] = values
+    errs = {k: _check_values(k, binary_values["capacity"][k], binary_values["list"][k],
+                             CURVE_ATOL if k in ("auroc", "ap") else 0.0) for k in binary_values["list"]}
+    print(f"binary capacity mode vs list mode: max abs err {errs}")
+    return results
 
 
 def main() -> int:
@@ -508,6 +770,10 @@ def main() -> int:
     seg_step_ms = float(np.median(step_ms))
     print(f"peak device memory of a step above its inputs: "
           f"{_step_peak_mib(segmentation, (seg_probs[0], seg_labels[0]), device, dice_score):.1f} MiB")
+
+    _phase(f"curves collection: AUROC + AveragePrecision (macro, with_capacity) + CalibrationError over "
+           f"{CURVE_CLASSES} classes; binary curves on {BINARY_ROWS} tied scores")
+    _curves_phase(smi, device)
 
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):

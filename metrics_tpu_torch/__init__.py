@@ -12,41 +12,61 @@ raises.
 __version__ = "0.1.0"
 
 from metrics_tpu_torch.classification import (
-    F1,
+    AUC,
+    AUROC,
     Accuracy,
+    AveragePrecision,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
+    CalibrationError,
     CohenKappa,
     ConfusionMatrix,
+    F1,
     FBeta,
     HammingDistance,
+    Hinge,
     IoU,
+    KLDivergence,
     MatthewsCorrcoef,
     Precision,
+    PrecisionRecallCurve,
+    ROC,
     Recall,
     Specificity,
     StatScores,
 )
+from metrics_tpu_torch.core.average import AverageMeter
+from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AverageMeter",
+    "AveragePrecision",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CalibrationError",
+    "CatBuffer",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
     "F1",
     "FBeta",
     "HammingDistance",
+    "Hinge",
     "IoU",
+    "KLDivergence",
     "MatthewsCorrcoef",
     "Metric",
     "MetricCollection",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "Specificity",
     "StatScores",

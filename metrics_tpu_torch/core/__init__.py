@@ -1,4 +1,6 @@
+from metrics_tpu_torch.core.average import AverageMeter
+from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 
-__all__ = ["CompositionalMetric", "Metric", "MetricCollection"]
+__all__ = ["AverageMeter", "CatBuffer", "CompositionalMetric", "Metric", "MetricCollection"]

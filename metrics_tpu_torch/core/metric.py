@@ -10,9 +10,14 @@ plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
 states are registered buffers (so ``.to()``/``.cuda()`` move them), list
-states are plain Python lists. States are never written in place; every
-update assigns a new tensor, so a snapshot (the sync cache, a forward's
-accumulated state) is a dict of references, not copies.
+states are plain Python lists, and ``with_capacity(n)`` turns the list states
+into :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` states, which
+``_apply`` moves and casts. Tensor and list states are never written in
+place; every update assigns a new tensor, so a snapshot (the sync cache, a
+forward's accumulated state) is a dict of references, not copies. A
+CatBuffer is written in place by its ``append``; every path here that would
+let two holders see one buffer hands one of them fresh storage instead
+(``core/cat_buffer.py``).
 """
 import functools
 import inspect
@@ -22,6 +27,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.parallel.sync import distributed_available, host_sync_state
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.exceptions import (
@@ -68,11 +74,38 @@ def _cast_floating(state: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     def cast(x: torch.Tensor) -> torch.Tensor:
         return x.to(dtype) if x.is_floating_point() else x
 
-    return {k: [cast(x) for x in v] if isinstance(v, list) else cast(v) for k, v in state.items()}
+    def cast_value(v: Any) -> Any:
+        if isinstance(v, list):
+            return [cast(x) for x in v]
+        if isinstance(v, CatBuffer):
+            # once per buffer: later appends copy into the cast buffer
+            return v._apply(cast)
+        return cast(v)
+
+    return {k: cast_value(v) for k, v in state.items()}
 
 
 def _copy_state_value(v: Any) -> Any:
+    # a CatBuffer passes as it is: every state restored here (a sync cache,
+    # a merged or synced state, the accumulation forward set aside) has no
+    # other live holder, so a copy would only cost a clone at the next append
     return list(v) if isinstance(v, list) else v
+
+
+def _raise_on_catbuffer_overflow(state: Dict[str, Any], label: str) -> None:
+    """An update must not go on accumulating into a CatBuffer that carries the
+    overflow flag of a loaded JAX snapshot: its rows are corrupt. (The JAX
+    package runs this check after each compiled update, where a traced append
+    latches the flag; the port's appends raise before they overflow, so only
+    a loaded flag can be set here.) One host bool per CatBuffer state."""
+    for name, v in state.items():
+        if isinstance(v, CatBuffer) and v.overflowed:
+            raise MetricsTPUUserError(
+                f"CatBuffer state {name!r} of {label} carries the overflow flag of "
+                f"a loaded snapshot (capacity {v.capacity}): its rows were clamped "
+                "inside jit where they were accumulated, and are corrupt. Construct "
+                "the metric with a larger `with_capacity(...)` and re-run."
+            )
 
 
 def _dtype_category(t: torch.Tensor) -> str:
@@ -81,16 +114,26 @@ def _dtype_category(t: torch.Tensor) -> str:
     return "bool" if t.dtype == torch.bool else "integer"
 
 
+def _first_item(v: Any) -> Optional[torch.Tensor]:
+    """A tensor whose ``shape[1:]`` and dtype are the item spec of a cat-family
+    leaf, or None while the leaf is empty."""
+    if isinstance(v, CatBuffer):
+        return v.buffer
+    if isinstance(v, list):
+        return v[0] if v else None
+    return v
+
+
 def _merge_leaf_divergences(name: str, a: Any, b: Any, fx: Any, declared: Any) -> List[str]:
     """Reasons leaf ``b`` cannot merge into leaf ``a`` under ``fx`` (empty =
     mergeable): list/"cat" leaves compare item shape and dtype family, reduce
     leaves full shape and dtype family."""
-    cat_family = isinstance(a, list) or isinstance(b, list) or isinstance(declared, list) or fx == "cat"
+    cat_kinds = (list, CatBuffer)
+    cat_family = isinstance(a, cat_kinds) or isinstance(b, cat_kinds) or isinstance(declared, cat_kinds) or fx == "cat"
     if cat_family:
-        items = [v[0] if isinstance(v, list) else v for v in (a, b) if not isinstance(v, list) or v]
-        if len(items) < 2:
+        ia, ib = _first_item(a), _first_item(b)
+        if ia is None or ib is None:
             return []
-        ia, ib = items
         out = []
         if tuple(ia.shape[1:]) != tuple(ib.shape[1:]):
             out.append(f"{name}: item shape {tuple(ib.shape[1:])} (incoming) vs {tuple(ia.shape[1:])} (self)")
@@ -222,10 +265,15 @@ class Metric(nn.Module):
         # list states are not buffers and move here
         this = super()._apply(fn, *args, **kwargs)
         for name, default in this._defaults.items():
+            live = getattr(this, name)
             if isinstance(default, torch.Tensor):
                 this._defaults[name] = fn(default)
-            else:
-                setattr(this, name, [fn(v) for v in getattr(this, name)])
+            elif isinstance(default, CatBuffer):
+                default._apply(fn)
+            if isinstance(live, CatBuffer):
+                live._apply(fn)
+            elif isinstance(live, list):
+                setattr(this, name, [fn(v) for v in live])
         # a cast of every floating dtype to one (``half()``, ``.to(dtype)``,
         # ``set_dtype``, also from a parent module) is recorded, so that the
         # update wrapper re-casts after every update
@@ -283,7 +331,7 @@ class Metric(nn.Module):
             return None
 
         accumulated = self._state
-        self._restore(self._defaults)
+        self._restore(self._batch_default_state())
         self.update(*args, **kwargs)
         batch_state = self._state
 
@@ -299,7 +347,18 @@ class Metric(nn.Module):
             batch_state = self._state  # the sync context restored the local batch state
 
         if self._can_merge():
-            self._restore(self.merge_states(accumulated, batch_state))
+            try:
+                if type(self).merge_states is Metric.merge_states:
+                    # the accumulation set aside above has no other holder:
+                    # its CatBuffers take the batch rows in place (an append
+                    # that would overflow raises before it writes)
+                    merged = self._merge_states(accumulated, batch_state, in_place=True)
+                else:
+                    merged = self.merge_states(accumulated, batch_state)
+            except Exception:
+                self._restore(accumulated)
+                raise
+            self._restore(merged)
         else:
             self._restore(accumulated)
             self.update(*args, **kwargs)
@@ -403,17 +462,45 @@ class Metric(nn.Module):
         if type(self).merge_states is not Metric.merge_states:
             return True
         return all(
-            fx in _MERGEABLE_FX or isinstance(self._defaults[name], list)
+            fx in _MERGEABLE_FX or isinstance(self._defaults[name], (list, CatBuffer))
             for name, fx in self._reductions.items()
         )
 
+    def _batch_default_state(self) -> Dict[str, Any]:
+        """Fresh state for one batch of ``forward``: CatBuffer states start as
+        plain lists, so that a batch costs O(batch), not O(capacity); the
+        merge appends its rows into the accumulation's buffer."""
+        return {k: [] if isinstance(v, CatBuffer) else _copy_state_value(v) for k, v in self._defaults.items()}
+
     def merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any]) -> Dict[str, Any]:
         """Merge two accumulated states of this metric into one, by each
-        state's reduction: sum → add, cat → concat, max/min → elementwise."""
+        state's reduction: sum → add, cat → concat, max/min → elementwise.
+        List and CatBuffer states merge with each other; neither input is
+        changed."""
+        return self._merge_states(state_a, state_b)
+
+    def _merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any], in_place: bool = False) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         for name, fx in self._reductions.items():
             a, b = state_a[name], state_b[name]
-            if isinstance(self._defaults[name], list):
+            if isinstance(a, CatBuffer) and isinstance(b, list):
+                merged = a if in_place else a.copy()
+                for x in b:
+                    merged.append(x)
+                out[name] = merged
+            elif isinstance(a, CatBuffer):
+                out[name] = a.merge(b)
+            elif isinstance(b, CatBuffer):
+                # merging INTO a list state loses the overflow flag, so a
+                # corrupt buffer must fail here, loudly
+                if b.overflowed:
+                    raise MetricsTPUUserError(
+                        f"State {name!r} holds a CatBuffer that overflowed inside "
+                        "jit: its rows are corrupt and cannot be merged into a "
+                        "list-state metric. Re-run with a larger capacity."
+                    )
+                out[name] = list(a) + ([b.values().clone()] if len(b) else [])
+            elif isinstance(self._defaults[name], list):
                 out[name] = list(a) + list(b)
             elif fx == "sum":
                 out[name] = a + b
@@ -469,13 +556,45 @@ class Metric(nn.Module):
         self._computed = None
         # fresh copies: a subclass that updates in place must not write into
         # the defaults (forward, on the hot path, aliases them instead)
-        self._restore({k: v.clone() if isinstance(v, torch.Tensor) else [] for k, v in self._defaults.items()})
+        self._restore({
+            k: v.clone() if isinstance(v, torch.Tensor) else v.reset() if isinstance(v, CatBuffer) else []
+            for k, v in self._defaults.items()
+        })
         self._is_synced = False
         self._cache = None
 
     def clone(self) -> "Metric":
         """Deep copy."""
         return deepcopy(self)
+
+    def with_capacity(self, capacity: int) -> "Metric":
+        """Turn every list ("cat") state into a
+        :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` of ``capacity``
+        rows: one preallocated tensor per state, filled in place, instead of
+        a list of batches concatenated at ``compute()``. The curve metrics
+        then compute over the buffer with padding-aware ranking
+        (``ops/ranking.py``). Allowed before the first update, or to resize
+        buffers that are still empty. Returns ``self``.
+        """
+        for name, default in self._defaults.items():
+            live = getattr(self, name)
+            if isinstance(default, list):
+                if isinstance(live, list) and live:
+                    raise MetricsTPUUserError(
+                        "with_capacity() must be called before any update() "
+                        f"(state {name!r} already holds data)."
+                    )
+            elif isinstance(default, CatBuffer):
+                if (isinstance(live, CatBuffer) and len(live)) or len(default):
+                    raise MetricsTPUUserError(
+                        "with_capacity() cannot resize a CatBuffer state that "
+                        f"already holds data (state {name!r})."
+                    )
+            else:
+                continue
+            self._defaults[name] = CatBuffer(capacity)
+            setattr(self, name, CatBuffer(capacity))
+        return self
 
     # ------------------------------------------------------------------
     # serialization
@@ -493,7 +612,16 @@ class Metric(nn.Module):
             if not self._persistent[name]:
                 continue
             v = getattr(self, name)
-            if isinstance(v, list):
+            if isinstance(v, CatBuffer):
+                # the JAX package's snapshot layout; the buffer is a copy, so
+                # later appends cannot write into the snapshot
+                destination[prefix + name] = {
+                    "__catbuffer__": v.capacity,
+                    "buffer": None if v.buffer is None else v.buffer.detach().clone(),
+                    "count": torch.tensor(v.count),
+                    "overflowed": torch.tensor(v.overflowed),
+                }
+            elif isinstance(v, list):
                 destination[prefix + name] = [x if keep_vars else x.detach() for x in v]
             else:
                 destination[prefix + name] = v if keep_vars else v.detach()
@@ -511,11 +639,7 @@ class Metric(nn.Module):
         for name in self._defaults:
             key = prefix + name
             if key in state_dict:
-                v = state_dict[key]
-                if isinstance(v, list):
-                    loaded: Any = [torch.as_tensor(x).to(self._device) for x in v]
-                else:
-                    loaded = torch.as_tensor(v).to(self._device)
+                loaded = self._loaded_state(key, state_dict[key], self._defaults[name])
                 setattr(self, name, loaded)
                 self._update_called = True
                 # the loaded state supersedes any memoized result
@@ -527,6 +651,48 @@ class Metric(nn.Module):
             for key in state_dict:
                 if key.startswith(prefix) and key[len(prefix):] not in self._defaults and "." not in key[len(prefix):]:
                     unexpected_keys.append(key)
+
+    def _loaded_state(self, key: str, v: Any, declared: Any) -> Any:
+        """One snapshot value as a state of this metric's declared kind: a
+        CatBuffer snapshot (or a CatBuffer, from ``utils/convert.py``) may
+        resume a list state and a list snapshot a CatBuffer state, as in the
+        JAX package. A CatBuffer state keeps its declared capacity and gets
+        storage of its own."""
+        if isinstance(v, dict) and "__catbuffer__" in v:
+            buffer = v["buffer"]
+            v = CatBuffer(
+                v["__catbuffer__"],
+                None if buffer is None else torch.as_tensor(buffer),
+                int(v["count"]),
+                # absent in snapshots from before the overflow flag: clean
+                bool(v.get("overflowed", False)),
+            )
+        if isinstance(v, CatBuffer):
+            if isinstance(declared, CatBuffer):
+                cb = CatBuffer(declared.capacity)
+                if v.count:
+                    cb.append(v.buffer[: v.count].to(self._device))
+                cb.overflowed = v.overflowed
+                return cb
+            # a list state has no overflow flag to carry, so a corrupt
+            # (overflowed) snapshot must fail the load
+            if v.overflowed:
+                raise MetricsTPUUserError(
+                    f"Checkpoint state '{key}' holds a CatBuffer that "
+                    "overflowed inside jit: its rows are corrupt and "
+                    "cannot be resumed into a list-state metric. "
+                    "Re-run the accumulation with a larger capacity."
+                )
+            return [v.values().to(self._device)] if len(v) else []
+        if isinstance(v, list):
+            rows = [torch.as_tensor(x).to(self._device) for x in v]
+            if isinstance(declared, CatBuffer):
+                cb = CatBuffer(declared.capacity)
+                for x in rows:
+                    cb.append(x)
+                return cb
+            return rows
+        return torch.as_tensor(v).to(self._device)
 
     def load_state_dict(  # type: ignore[override]
         self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = False
@@ -691,6 +857,7 @@ def _wrap_update(update: Callable) -> Callable:
             out = update(self, *args, **kwargs)
         if self._dtype is not None:
             self._restore(_cast_floating(self._state, self._dtype))
+        _raise_on_catbuffer_overflow(self._state, type(self).__name__)
         return out
 
     wrapped_func._wrapped = True  # type: ignore[attr-defined]

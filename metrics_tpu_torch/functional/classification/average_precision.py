@@ -1,13 +1,58 @@
-"""Average precision from precision/recall pairs.
+"""Average precision — functional layer.
 
-Counterpart of ``metrics_tpu/functional/classification/average_precision.py:57-85``
-(``_average_precision_compute_with_precision_recall``); the rest of that
-module belongs to the cat-state curve family, which a later slice ports.
+Counterpart of ``metrics_tpu/functional/classification/average_precision.py``:
+the step integral of one precision–recall curve per class
+(``precision_recall_curve.py``). The fixed-capacity path of the
+``AveragePrecision`` module computes it by ranking (``ops/ranking.py``).
 """
 import warnings
-from typing import List, Optional, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
+
+from metrics_tpu_torch.functional.classification.precision_recall_curve import (
+    _precision_recall_curve_compute,
+    _precision_recall_curve_update,
+)
+from metrics_tpu_torch.utils.data import _bincount
+
+
+def _average_precision_update(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+) -> Tuple[torch.Tensor, torch.Tensor, int, Optional[int]]:
+    preds, target, num_classes, pos_label = _precision_recall_curve_update(preds, target, num_classes, pos_label)
+    if average == "micro":
+        if preds.ndim == target.ndim:
+            preds = preds.reshape(-1)
+            target = target.reshape(-1)
+            num_classes = 1
+        else:
+            raise ValueError("Cannot use `micro` average with multi-class input")
+    return preds, target, num_classes, pos_label
+
+
+def _average_precision_compute(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    sample_weights: Optional[Sequence] = None,
+) -> Union[List[torch.Tensor], torch.Tensor]:
+    precision, recall, _ = _precision_recall_curve_compute(preds, target, num_classes, pos_label)
+    if average == "weighted":
+        if preds.ndim == target.ndim and target.ndim > 1:
+            weights = torch.sum(target, dim=0).to(torch.float32)
+        else:
+            weights = _bincount(target, minlength=num_classes).to(torch.float32)
+        weights = weights / torch.sum(weights)
+    else:
+        weights = None
+    return _average_precision_compute_with_precision_recall(precision, recall, num_classes, average, weights)
 
 
 def _average_precision_compute_with_precision_recall(
@@ -39,3 +84,35 @@ def _average_precision_compute_with_precision_recall(
         return res
     allowed_average = ("micro", "macro", "weighted", None)
     raise ValueError(f"Expected argument `average` to be one of {allowed_average} but got {average}")
+
+
+def average_precision(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: Optional[int] = None,
+    pos_label: Optional[int] = None,
+    average: Optional[str] = "macro",
+    sample_weights: Optional[Sequence] = None,
+) -> Union[List[torch.Tensor], torch.Tensor]:
+    """Average precision: the area under the precision–recall step curve.
+
+    Args:
+        preds: binary scores ``[N]`` or per-class scores ``[N, C]``.
+        target: labels of the matching shape.
+        num_classes: class count for multiclass scores.
+        pos_label: the label treated as positive in binary input.
+        average: ``"macro"`` / ``"weighted"`` / ``"micro"`` / ``None``
+            (per-class list).
+        sample_weights: optional per-sample weights (accepted, not used by
+            the curve, as in the JAX package).
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import average_precision
+        >>> pred = torch.tensor([0.1, 0.2, 0.3, 0.4])
+        >>> target = torch.tensor([0, 0, 1, 1])
+        >>> round(float(average_precision(pred, target, pos_label=1)), 4)
+        1.0
+    """
+    preds, target, num_classes, pos_label = _average_precision_update(preds, target, num_classes, pos_label, average)
+    return _average_precision_compute(preds, target, num_classes, pos_label, average, sample_weights)

@@ -7,6 +7,9 @@ padding to the largest, gathering and trimming. The backend is the process
 group's own: gloo for CPU tensors, NCCL for CUDA tensors (a tensor is gathered
 on the device it lives on). A world of one rank is a no-op.
 
+A fixed-capacity ``CatBuffer`` state gathers its (count, overflow flag)
+words, then its valid rows (``host_sync_leaf``).
+
 The JAX package's health header, bucketed payload, quorum and tiering layers
 are not ported yet; every leaf costs its own collectives here.
 """
@@ -15,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 import torch.distributed as dist
 
-from metrics_tpu_torch.utils.exceptions import StateDivergenceError
+from metrics_tpu_torch.utils.exceptions import StateDivergenceError, SyncError
 
 ReduceFx = Union[str, Callable, None]
 
@@ -93,7 +96,35 @@ def host_sync_leaf(value: Any, fx: ReduceFx, group: Optional[Any] = None) -> Any
     Every rank first gathers the element counts, so a rank with an empty list
     still takes part in a collective, and if any rank is empty every rank
     raises :class:`StateDivergenceError` together.
+
+    A :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` state gathers one
+    (count, overflow flag) word per rank first: an empty rank makes every
+    rank raise :class:`StateDivergenceError`, an overflowed one
+    :class:`SyncError`. Then the valid rows move through the uneven-shape
+    gather, into a ``CatBuffer(world * capacity)`` in rank order.
     """
+    from metrics_tpu_torch.core.cat_buffer import CatBuffer
+
+    if isinstance(value, CatBuffer):
+        if not distributed_available(group):
+            return value.copy()
+        word = torch.tensor([len(value), int(value.overflowed)], device=_collective_device(group))
+        words = torch.stack(_all_gather(word, group)).cpu()
+        if bool((words[:, 0] == 0).any()):
+            raise StateDivergenceError(
+                "Cannot sync a CatBuffer state across processes: at least one process "
+                "has an empty state (no update() before sync()). All processes raised."
+            )
+        if bool((words[:, 1] != 0).any()):
+            raise SyncError(
+                "Cannot sync a CatBuffer state across processes: at least one process "
+                "overflowed its capacity (rows were overwritten inside jit). "
+                "All processes raised. Use a larger `with_capacity(...)`."
+            )
+        merged = CatBuffer(dist.get_world_size(group) * value.capacity)
+        for rows in gather_all_arrays(value.values(), group):
+            merged.append(rows)
+        return merged
     if isinstance(value, (list, tuple)):
         vals = [torch.cat([v.unsqueeze(0) if v.ndim == 0 else v for v in value])] if value else []
         if not distributed_available(group):

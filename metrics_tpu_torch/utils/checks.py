@@ -268,3 +268,13 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.long(), target.long(), case
+
+
+def _input_mode(preds: torch.Tensor, target: torch.Tensor) -> DataType:
+    """The case ``_input_format_classification(preds, target)`` detects, with
+    the same validation, without building the formatted tensors: for
+    callers that take only the mode (AUROC, CalibrationError)."""
+    preds, target = _input_squeeze(preds, target)
+    if preds.dtype in (torch.float16, torch.bfloat16):
+        preds = preds.to(torch.float32)
+    return _check_classification_inputs(preds, target, threshold=0.5, num_classes=None, multiclass=None, top_k=None)

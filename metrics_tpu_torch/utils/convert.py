@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.utils.device import resolve_device
 
 
@@ -34,15 +35,31 @@ def state_dict_from_reference(
 
     Integer states become int64, float16 and bfloat16 states keep their
     dtype, other floating states become float32, list states stay lists (of
-    converted tensors). ``device=None`` means CUDA, as everywhere in
-    this package.
+    converted tensors), and a fixed-capacity CatBuffer snapshot becomes a
+    :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` with its flag.
+    ``device=None`` means CUDA, as everywhere in this package.
     """
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     for key, value in sd.items():
-        if isinstance(value, dict):
-            raise ValueError(
-                f"state {key!r} is a fixed-capacity CatBuffer snapshot, which this package does not port yet"
-            )
-        out[key] = [_tensor(v, dev) for v in value] if isinstance(value, (list, tuple)) else _tensor(value, dev)
+        if isinstance(value, dict) and "__catbuffer__" in value:
+            out[key] = _cat_buffer(value, dev)
+        elif isinstance(value, dict):
+            raise ValueError(f"state {key!r} is a dict but not a CatBuffer snapshot")
+        else:
+            out[key] = [_tensor(v, dev) for v in value] if isinstance(value, (list, tuple)) else _tensor(value, dev)
     return out
+
+
+def _cat_buffer(snapshot: Dict[str, Any], device: torch.device) -> CatBuffer:
+    """A JAX ``{"__catbuffer__": capacity, "buffer", "count", "overflowed"}``
+    snapshot as a CatBuffer of this package: its valid rows, converted as
+    any state is, in a zeroed buffer of the same capacity. The overflow
+    flag carries over (absent in old snapshots: clean), so an accumulation
+    that overflowed inside ``jit`` stays loud here."""
+    cb = CatBuffer(int(snapshot["__catbuffer__"]))
+    count = int(np.asarray(snapshot["count"]))
+    if snapshot["buffer"] is not None and count:
+        cb.append(_tensor(np.asarray(snapshot["buffer"])[:count], device))
+    cb.overflowed = bool(np.asarray(snapshot.get("overflowed", False)))
+    return cb

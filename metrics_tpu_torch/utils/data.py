@@ -5,17 +5,26 @@ Counterpart of ``metrics_tpu/utils/data.py``: the state reducers
 confusion matrix's scatter count and the threshold grid of the binned
 metrics.
 """
-from typing import List, Optional, Union
+from typing import TYPE_CHECKING, List, Optional, Union
 
 import torch
 
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
+if TYPE_CHECKING:
+    from metrics_tpu_torch.core.cat_buffer import CatBuffer
+
 METRIC_EPS = 1e-6
 
 
-def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
-    """Concatenate a (possibly list-valued) state along dim 0."""
+def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor], "CatBuffer"]) -> torch.Tensor:
+    """Concatenate a (possibly list- or CatBuffer-valued) state along dim 0."""
+    from metrics_tpu_torch.core.cat_buffer import CatBuffer
+
+    if isinstance(x, CatBuffer):
+        if x.buffer is None or len(x) == 0:
+            raise ValueError("No samples to concatenate")
+        return x.values()
     x = list(x) if isinstance(x, (list, tuple)) else [x]
     if not x:
         raise ValueError("No samples to concatenate")

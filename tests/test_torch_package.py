@@ -79,6 +79,24 @@ DOCTEST_MODULES = [
     "metrics_tpu_torch.functional.classification.cohen_kappa",
     "metrics_tpu_torch.functional.classification.matthews_corrcoef",
     "metrics_tpu_torch.functional.classification.dice",
+    "metrics_tpu_torch.core.cat_buffer",
+    "metrics_tpu_torch.core.average",
+    "metrics_tpu_torch.classification.auc",
+    "metrics_tpu_torch.classification.auroc",
+    "metrics_tpu_torch.classification.average_precision",
+    "metrics_tpu_torch.classification.precision_recall_curve",
+    "metrics_tpu_torch.classification.roc",
+    "metrics_tpu_torch.classification.calibration_error",
+    "metrics_tpu_torch.classification.kl_divergence",
+    "metrics_tpu_torch.classification.hinge",
+    "metrics_tpu_torch.functional.classification.auc",
+    "metrics_tpu_torch.functional.classification.auroc",
+    "metrics_tpu_torch.functional.classification.average_precision",
+    "metrics_tpu_torch.functional.classification.precision_recall_curve",
+    "metrics_tpu_torch.functional.classification.roc",
+    "metrics_tpu_torch.functional.classification.calibration_error",
+    "metrics_tpu_torch.functional.classification.kl_divergence",
+    "metrics_tpu_torch.functional.classification.hinge",
 ]
 
 
@@ -105,13 +123,22 @@ DEFAULT_DEVICE_CASES = {
     "IoU": lambda **kw: port.IoU(10, **kw),
     "CohenKappa": lambda **kw: port.CohenKappa(10, **kw),
     "MatthewsCorrcoef": lambda **kw: port.MatthewsCorrcoef(10, **kw),
+    "AUC": lambda **kw: port.AUC(**kw),
+    "AUROC": lambda **kw: port.AUROC(num_classes=10, **kw).with_capacity(64),
+    "AveragePrecision": lambda **kw: port.AveragePrecision(**kw),
+    "ROC": lambda **kw: port.ROC(**kw),
+    "PrecisionRecallCurve": lambda **kw: port.PrecisionRecallCurve(**kw),
+    "CalibrationError": lambda **kw: port.CalibrationError(**kw),
+    "KLDivergence": lambda **kw: port.KLDivergence(**kw),
+    "Hinge": lambda **kw: port.Hinge(**kw),
+    "AverageMeter": lambda **kw: port.AverageMeter(**kw),
     # a composite takes its operands' device
     "CompositionalMetric": lambda **kw: port.Precision(**kw) * port.Recall(**kw) + 1.0,
 }
 
 
 def test_every_exported_metric_has_a_default_device_case():
-    metrics = {name for name in port.__all__ if name not in ("Metric", "MetricCollection")}
+    metrics = {name for name in port.__all__ if name not in ("Metric", "MetricCollection", "CatBuffer")}
     assert metrics - {"BinnedPrecisionRecallCurve", "BinnedRecallAtFixedPrecision"} == set(DEFAULT_DEVICE_CASES)
 
 

@@ -15,12 +15,13 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import metrics_tpu_torch as port
-from metrics_tpu_torch.parallel.sync import gather_all_arrays
-from metrics_tpu_torch.utils.exceptions import StateDivergenceError
+from metrics_tpu_torch.parallel.sync import gather_all_arrays, host_sync_leaf
+from metrics_tpu_torch.utils.exceptions import StateDivergenceError, SyncError
 
 C = 10
 # uneven batch sizes and batch counts per rank
 RANK_BATCHES = {0: [100, 37], 1: [64, 90, 11]}
+CAPACITY = 256
 
 
 def _batches(rank):
@@ -67,6 +68,30 @@ def _worker(rank, world, port_no, out_dir):
             result["empty_list"] = "no error"
         except StateDivergenceError as err:
             result["empty_list"] = type(err).__name__
+
+        # fixed-capacity states: uneven rows per rank, gathered in rank order
+        auroc = port.AUROC(num_classes=C, device="cpu").with_capacity(CAPACITY)
+        for p, t in _batches(rank):
+            auroc.update(p, t)
+        result["auroc_synced"] = auroc.compute()
+        result["auroc_rows_after"] = (len(auroc.preds), auroc.preds.capacity)
+        merged = host_sync_leaf(auroc.preds, "cat")
+        result["auroc_gathered"] = (merged.capacity, merged.values())
+
+        # a CatBuffer state empty on one rank, then one overflowed on one
+        # rank: every rank raises together
+        for case in ("empty", "overflowed"):
+            m = port.AUROC(device="cpu").with_capacity(16)
+            if rank == 0 or case == "overflowed":
+                m.update(torch.rand(4), torch.randint(0, 2, (4,)))
+            if rank == 0 and case == "overflowed":
+                m.preds.overflowed = True
+            try:
+                with m.sync_context():
+                    pass
+                result[case] = "no error"
+            except SyncError as err:
+                result[case] = type(err).__name__
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -108,3 +133,27 @@ def test_uneven_gather_trims_each_rank(two_rank_results):
 
 def test_empty_list_state_raises_on_every_rank(two_rank_results):
     assert [r["empty_list"] for r in two_rank_results] == ["StateDivergenceError"] * 2
+
+
+def test_with_capacity_auroc_syncs_uneven_rows(two_rank_results):
+    """A ``with_capacity`` AUROC synced over ranks holding 137 and 165 rows
+    equals one process that saw every batch, and ``compute()`` leaves each
+    rank its own rows."""
+    single = port.AUROC(num_classes=C, device="cpu").with_capacity(2 * CAPACITY)
+    rows = []
+    for rank in sorted(RANK_BATCHES):
+        for p, t in _batches(rank):
+            single.update(p, t)
+            rows.append(p)
+    want = single.compute()
+    for rank, result in enumerate(two_rank_results):
+        assert torch.equal(result["auroc_synced"], want), rank
+        assert result["auroc_rows_after"] == (sum(RANK_BATCHES[rank]), CAPACITY)
+        capacity, values = result["auroc_gathered"]
+        assert capacity == 2 * CAPACITY
+        assert torch.equal(values, torch.cat(rows))
+
+
+def test_empty_or_overflowed_catbuffer_raises_on_every_rank(two_rank_results):
+    assert [r["empty"] for r in two_rank_results] == ["StateDivergenceError"] * 2
+    assert [r["overflowed"] for r in two_rank_results] == ["SyncError"] * 2
