@@ -19,8 +19,10 @@
 6. drives the report collection at ImageNet-1k eval width (macro
    Precision/Recall/F1/Specificity, ConfusionMatrix, MatthewsCorrcoef,
    CohenKappa over 1000 classes, HammingDistance) for 16 ``forward`` steps of
-   [2048, 1000] probabilities, and a ``CompositionalMetric``
-   ``2 * (p * r) / (p + r)``, each held against the same run on the CPU;
+   [2048, 1000] probabilities, with its compute groups (the default: the four
+   stat-score members share one update) and without, and a
+   ``CompositionalMetric`` ``2 * (p * r) / (p + r)``; the grouped run is held
+   bit for bit against the ungrouped one, and both against the CPU run;
 7. drives the segmentation collection at Cityscapes val resolution (IoU and
    ConfusionMatrix over 19 classes, plus ``dice_score`` per step) for 4 steps
    of [1, 19, 1024, 2048] probabilities, held against the CPU run;
@@ -34,16 +36,31 @@
    PrecisionRecallCurve on 2^20 scores with large tie groups) in both modes;
    every state is held against the CPU run, and the two modes against each
    other;
-9. profiles a step of each collection, then prints one JSON line describing
-   the kernels, then, as the last line, ``{"ok": true, "device": {...}}``.
+9. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
+   gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
+   report batches and of the curves batches (AUROC + AveragePrecision with
+   ``with_capacity``), the collections sync through one health header and one
+   bucketed plan, and the synced values on both ranks are held against one
+   process on the card over all batches; counts the collectives of the fused
+   sync against the per-leaf sync and times both; then drives three
+   divergence cases on the two ranks (``num_classes`` 1000 against 1001, the
+   same with ``on_error="local"``/``"warn"``, one NaN under
+   ``enable_check_finite()``), which must raise, degrade and raise on both;
+10. profiles a step of each collection (the report collection with and
+   without compute groups), then prints one JSON line describing the kernels,
+   then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last
 line. Without CUDA it exits with code 2 and prints no result.
 """
 import json
+import os
+import socket
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -83,6 +100,8 @@ CURVE_ATOL = 3e-6
 # in another order (12 roundings of 2**-24 each), for conf and acc both,
 # weighted by bin shares that sum to 1
 CE_ATOL = 2e-6
+# sync phase: two ranks on the one card, each with half of the batches
+SYNC_WORLD = 2
 
 
 def _phase(name: str) -> None:
@@ -231,12 +250,14 @@ def _profile(make, batches, device, step_ms, steps=4, per_step=None):
                 per_step(preds[i], target[i])
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    syncs = len(_sync_events(prof)) / steps
     if not kernels:
         print("profile: the profiler recorded no device activity (device busy share not measured)")
-        return
+        return {"kernels_per_step": None, "busy_us": None, "syncs_per_step": syncs}
     busy_us = sum(e.time_range.elapsed_us() for e in kernels) / steps
-    print(f"device busy {busy_us:.2f} us/step in {len(kernels) / steps:.1f} kernels/step; the unprofiled step "
-          f"takes {step_ms * 1e3:.2f} us, so the device is idle {100 * (1 - busy_us / (step_ms * 1e3)):.2f}% of it")
+    print(f"device busy {busy_us:.2f} us/step in {len(kernels) / steps:.1f} kernels/step, {syncs:.1f} "
+          f"cudaStreamSynchronize/step; the unprofiled step takes {step_ms * 1e3:.2f} us, so the device is idle "
+          f"{100 * (1 - busy_us / (step_ms * 1e3)):.2f}% of it")
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))
@@ -246,6 +267,7 @@ def _profile(make, batches, device, step_ms, steps=4, per_step=None):
     rows = [r for r in prof.key_averages() if r.key != "Activity Buffer Request"]
     for r in sorted(rows, key=lambda r: -r.self_cpu_time_total)[:6]:
         print(f"  host   {r.self_cpu_time_total / steps:8.2f} us/step {r.count / steps:5.1f}/step  {r.key[:90]}")
+    return {"kernels_per_step": len(kernels) / steps, "busy_us": busy_us, "syncs_per_step": syncs}
 
 
 def _step_peak_mib(make, batch, device, per_step=None):
@@ -411,6 +433,60 @@ def _check_cat_states(mc_a, mc_b, what):
                 assert torch.equal(_state_rows(v), _state_rows(w)), f"state {key}.{name} differs ({what})"
 
 
+def _report_data():
+    """The report phase's 16 batches of [2048, 1000] probabilities and labels."""
+    rng = np.random.RandomState(1)
+    probs = torch.from_numpy(rng.rand(STEPS, BATCH, REPORT_CLASSES).astype(np.float32))
+    labels = torch.from_numpy(rng.randint(0, REPORT_CLASSES, (STEPS, BATCH)))
+    return probs, labels
+
+
+def _report_collection(dev, compute_groups=True):
+    from metrics_tpu_torch import (
+        F1,
+        CohenKappa,
+        ConfusionMatrix,
+        HammingDistance,
+        MatthewsCorrcoef,
+        MetricCollection,
+        Precision,
+        Recall,
+        Specificity,
+    )
+
+    k = dict(num_classes=REPORT_CLASSES, device=dev)
+    return MetricCollection({
+        "prec": Precision(average="macro", **k),
+        "rec": Recall(average="macro", **k),
+        "f1": F1(average="macro", **k),
+        "spec": Specificity(average="macro", **k),
+        "confmat": ConfusionMatrix(REPORT_CLASSES, normalize="true", device=dev),
+        "mcc": MatthewsCorrcoef(REPORT_CLASSES, device=dev),
+        "kappa": CohenKappa(REPORT_CLASSES, device=dev),
+        "hamming": HammingDistance(device=dev),
+    }, compute_groups=compute_groups)
+
+
+def _curve_data():
+    """The curves phase's 24 batches of [2048, 1000] softmax probabilities of
+    an informative model (the true class's logit raised by 3), and labels."""
+    rng = np.random.RandomState(3)
+    labels = rng.randint(0, CURVE_CLASSES, (CURVE_STEPS, BATCH))
+    logits = rng.randn(CURVE_STEPS, BATCH, CURVE_CLASSES).astype(np.float32)
+    np.put_along_axis(logits, labels[..., None], np.take_along_axis(logits, labels[..., None], -1) + 3, -1)
+    probs = torch.softmax(torch.from_numpy(logits), dim=-1)
+    return probs, torch.from_numpy(labels)
+
+
+def _ranking_collection(dev, capacity):
+    """AUROC + AveragePrecision (macro, 1000 classes) with ``with_capacity``."""
+    from metrics_tpu_torch import AUROC, AveragePrecision, MetricCollection
+
+    k = dict(num_classes=CURVE_CLASSES, average="macro", device=dev)
+    return MetricCollection({"auroc": AUROC(**k).with_capacity(capacity),
+                             "ap": AveragePrecision(**k).with_capacity(capacity)})
+
+
 def _curves_phase(smi, device):
     """The curves collection at ImageNet-1k width in capacity and list mode,
     and the binary curve metrics on 2^20 tied scores in both modes."""
@@ -424,14 +500,7 @@ def _curves_phase(smi, device):
         PrecisionRecallCurve,
     )
 
-    rng = np.random.RandomState(3)
-    labels = rng.randint(0, CURVE_CLASSES, (CURVE_STEPS, BATCH))
-    logits = rng.randn(CURVE_STEPS, BATCH, CURVE_CLASSES).astype(np.float32)
-    # an informative model: the true class's logit is raised by 3
-    np.put_along_axis(logits, labels[..., None], np.take_along_axis(logits, labels[..., None], -1) + 3, -1)
-    probs = torch.softmax(torch.from_numpy(logits), dim=-1)
-    del logits
-    labels = torch.from_numpy(labels)
+    probs, labels = _curve_data()
 
     def curves(dev, capacity=True):
         k = dict(num_classes=CURVE_CLASSES, average="macro", device=dev)
@@ -527,25 +596,195 @@ def _curves_phase(smi, device):
     return results
 
 
+def _synced_rows(mc):
+    """Every state of a collection on the host: a tensor as it is, a cat
+    state's rows."""
+    return {f"{k}.{n}": v.cpu() if isinstance(v, torch.Tensor) else _state_rows(v)
+            for k, m in mc.items() for n, v in m._state.items()}
+
+
+def _sync_rank(rank, world, port_no, out_dir, device):
+    """One rank of the sync phase, a process of its own, with its states on
+    ``device`` (``cuda:0`` for every rank)."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import Precision
+    from metrics_tpu_torch.parallel import sync as sync_mod
+    from metrics_tpu_torch.utils.exceptions import StateDivergenceError
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world, rank=rank)
+    try:
+        out = {"backend": dist.get_backend()}
+        gathers = []
+        raw = sync_mod._all_gather
+
+        def counting(x, group):
+            gathers.append(x.numel() * x.element_size())
+            return raw(x, group)
+
+        sync_mod._all_gather = counting
+
+        def timed_sync(mc, fused):
+            """Collectives, bytes put in, host ms and synced states of one
+            collection sync, fused or per leaf."""
+            os.environ["METRICS_TPU_FUSED_SYNC"] = "1" if fused else "0"
+            dist.barrier()
+            torch.cuda.synchronize()
+            gathers.clear()
+            t0 = time.perf_counter()
+            mc.sync()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            assert all(m._is_synced for m in mc.values())
+            states = _synced_rows(mc)
+            mc.unsync()
+            os.environ.pop("METRICS_TPU_FUSED_SYNC")
+            return {"collectives": len(gathers), "bytes": sum(gathers), "ms": ms}, states
+
+        for name, (data, make, steps) in {
+            "report": (_report_data, lambda: _report_collection(device), STEPS),
+            "ranking": (_curve_data, lambda: _ranking_collection(device, CURVE_CAPACITY // world), CURVE_STEPS),
+        }.items():
+            probs, labels = data()
+            share = slice(rank * steps // world, (rank + 1) * steps // world)
+            probs, labels = probs[share].to(device), labels[share].to(device)
+            mc = make()
+            for i in range(len(probs)):
+                mc(probs[i], labels[i]) if name == "report" else mc.update(probs[i], labels[i])
+            del probs, labels
+            runs = {}
+            for fused in (True, False, False, True):  # in turns; the second of each is kept
+                runs[fused] = timed_sync(mc, fused)
+            assert all(torch.equal(runs[True][1][k], runs[False][1][k]) for k in runs[True][1]), \
+                f"{name}: the fused sync's states differ from the per-leaf sync's"
+            gathers.clear()
+            values = mc.compute()  # syncs once, through the fused path
+            out[name] = {"groups": mc.compute_group_keys, "fused": runs[True][0], "per_leaf": runs[False][0],
+                         "compute_collectives": len(gathers), "states": runs[True][1],
+                         "values": {k: v.cpu() for k, v in values.items()}}
+            del mc
+
+        # three divergence cases, every one decided by the health header
+        gen = torch.Generator().manual_seed(10 + rank)
+
+        def divergent(c, check_finite=False, nan=False):
+            m = Precision(num_classes=c, average="macro", device=device)
+            if check_finite:
+                m.enable_check_finite()
+            preds = torch.rand(256, c, generator=gen)
+            if nan:
+                preds[7, 3] = float("nan")
+            m.update(preds.to(device), torch.randint(0, c, (256,), generator=gen).to(device))
+            return m
+
+        cases = {}
+        try:
+            divergent(REPORT_CLASSES + rank).compute()
+            cases["num_classes"] = "no error"
+        except StateDivergenceError as err:
+            cases["num_classes"] = type(err).__name__
+        for mode in ("local", "warn"):
+            m = divergent(REPORT_CLASSES + rank)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                m.sync(on_error=mode)
+            degraded = m._sync_degraded and not m._is_synced
+            m.unsync()  # a no-op after a degraded sync
+            m._to_sync = False  # the local value, with no sync
+            local = m.compute()
+            m._to_sync, m._computed = True, None
+            m.sync_on_error = mode
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                served = m.compute()  # degrades inside compute() too
+            cases[mode] = {"degraded": degraded and m._sync_degraded,
+                           "warnings": sum(issubclass(w.category, RuntimeWarning) for w in caught),
+                           "serves_local": bool(torch.equal(served, local))}
+        poisoned = divergent(REPORT_CLASSES, check_finite=True, nan=rank == 1)
+        try:
+            poisoned.compute()
+            cases["nonfinite"] = "no error"
+        except Exception as err:  # noqa: BLE001 - the class is the result
+            cases["nonfinite"] = type(err).__name__
+        out["cases"] = cases
+        sync_mod._all_gather = raw
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _sync_phase(device, report_gpu, report_values):
+    """Two ranks on the card, each with half of the batches, against one
+    process on the card over all of them (``report_gpu``, the report
+    phase's grouped run, and a ranking collection built here)."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_sync_")
+    t0 = time.perf_counter()
+    mp.start_processes(_sync_rank, args=(SYNC_WORLD, port_no, out_dir, str(device)), nprocs=SYNC_WORLD, join=True,
+                       start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)]
+    for r in range(SYNC_WORLD):
+        os.remove(os.path.join(out_dir, f"rank{r}.pt"))
+    os.rmdir(out_dir)
+    print(f"backend {ranks[0]['backend']} (NCCL refuses two ranks on one device: not measured on one card); "
+          f"{SYNC_WORLD} processes spawned, ran and joined in {spawn_s:.1f} s")
+
+    probs, labels = _curve_data()
+    ranking = _ranking_collection(device, CURVE_CAPACITY)
+    for i in range(CURVE_STEPS):
+        ranking.update(probs[i].to(device), labels[i].to(device))
+    del probs, labels
+    want = {"report": (_synced_rows(report_gpu), report_values), "ranking": (_synced_rows(ranking), ranking.compute())}
+    atol = {"report": lambda k: VALUE_ATOL_BY_METRIC.get(k, VALUE_ATOL), "ranking": lambda k: RANKING_ATOL}
+    for name, (want_states, want_values) in want.items():
+        for rank, result in enumerate(ranks):
+            got = result[name]
+            assert sorted(got["states"]) == sorted(want_states)
+            for k, v in want_states.items():
+                assert torch.equal(got["states"][k], v), f"{name} rank {rank}: synced {k} differs from one process"
+            errs = {k: _check_values(k, got["values"][k], v, atol[name](k)) for k, v in want_values.items()}
+            assert got["compute_collectives"] == got["fused"]["collectives"]
+            print(f"{name}, rank {rank}: compute groups {got['groups']}; fused sync {got['fused']['collectives']} "
+                  f"collectives ({got['fused']['bytes']} bytes in) in {got['fused']['ms']:.4f} ms, per-leaf "
+                  f"{got['per_leaf']['collectives']} collectives ({got['per_leaf']['bytes']} bytes in) in "
+                  f"{got['per_leaf']['ms']:.4f} ms; compute() syncs once ({got['compute_collectives']} collectives); "
+                  f"synced states equal to one process over all batches; max abs err of values {errs}")
+    cases = [r["cases"] for r in ranks]
+    assert [c["num_classes"] for c in cases] == ["StateDivergenceError"] * SYNC_WORLD, cases
+    assert [c["nonfinite"] for c in cases] == ["NonFiniteStateError"] * SYNC_WORLD, cases
+    for mode in ("local", "warn"):
+        assert all(c[mode]["degraded"] and c[mode]["serves_local"] for c in cases), cases
+    assert [c["local"]["warnings"] for c in cases] == [1, 0], cases  # rank-zero warning
+    assert [c["warn"]["warnings"] for c in cases] == [1, 1], cases
+    print(f"divergence on both ranks: num_classes {REPORT_CLASSES} vs {REPORT_CLASSES + 1} -> "
+          f"{[c['num_classes'] for c in cases]}; on_error='local' -> degraded to local values on both, warnings "
+          f"{[c['local']['warnings'] for c in cases]} (rank zero); on_error='warn' -> degraded on both, warnings "
+          f"{[c['warn']['warnings'] for c in cases]}; one NaN on rank 1 under enable_check_finite() -> "
+          f"{[c['nonfinite'] for c in cases]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
         return 2
 
     from metrics_tpu_torch import (
-        F1,
         Accuracy,
         BinnedAveragePrecision,
         BinnedRecallAtFixedPrecision,
-        CohenKappa,
         ConfusionMatrix,
-        HammingDistance,
         IoU,
-        MatthewsCorrcoef,
         MetricCollection,
         Precision,
         Recall,
-        Specificity,
         StatScores,
     )
     from metrics_tpu_torch.functional import dice_score
@@ -693,36 +932,46 @@ def main() -> int:
     binned_step_ms = float(np.median(step_ms))
 
     _phase("report collection: Precision/Recall/F1/Specificity (macro), ConfusionMatrix, MCC, kappa, Hamming "
-           f"over {REPORT_CLASSES} classes")
-    rng = np.random.RandomState(1)
-    report_probs = torch.from_numpy(rng.rand(STEPS, BATCH, REPORT_CLASSES).astype(np.float32))
-    report_labels = torch.from_numpy(rng.randint(0, REPORT_CLASSES, (STEPS, BATCH)))
+           f"over {REPORT_CLASSES} classes, with and without compute groups")
+    report_probs, report_labels = _report_data()
+    report = _report_collection
 
-    def report(dev):
-        k = dict(num_classes=REPORT_CLASSES, device=dev)
-        return MetricCollection({
-            "prec": Precision(average="macro", **k),
-            "rec": Recall(average="macro", **k),
-            "f1": F1(average="macro", **k),
-            "spec": Specificity(average="macro", **k),
-            "confmat": ConfusionMatrix(REPORT_CLASSES, normalize="true", device=dev),
-            "mcc": MatthewsCorrcoef(REPORT_CLASSES, device=dev),
-            "kappa": CohenKappa(REPORT_CLASSES, device=dev),
-            "hamming": HammingDistance(device=dev),
-        })
+    def report_ungrouped(dev):
+        return _report_collection(dev, compute_groups=False)
 
-    _run_collection(report, (report_probs, report_labels), device)  # warm-up
-    mc_gpu, v_gpu, step_ms, compute_ms, _ = _run_collection(report, (report_probs, report_labels), device)
+    report_runs = {}
+    for name, make in (("grouped", report), ("ungrouped", report_ungrouped)):
+        _run_collection(make, (report_probs, report_labels), device)  # warm-up
+    # in turns: grouped, ungrouped, ungrouped, grouped; the second of each is kept
+    for name, make in (("grouped", report), ("ungrouped", report_ungrouped), ("ungrouped", report_ungrouped),
+                       ("grouped", report)):
+        report_runs[name] = _run_collection(make, (report_probs, report_labels), device)
+    mc_gpu, v_gpu, step_ms, compute_ms, _ = report_runs["grouped"]
+    mc_ungrouped, v_ungrouped, step_ms_ungrouped, _, _ = report_runs["ungrouped"]
+    groups = mc_gpu.compute_group_keys
+    assert groups == [["f1", "prec", "rec", "spec"]], f"report compute groups {groups}"
+    assert mc_ungrouped.compute_group_keys == []
     mc_cpu, v_cpu, _, _, _ = _run_collection(report, (report_probs, report_labels), "cpu")
     _check_states(mc_gpu, mc_cpu)
+    for (key, m_g), (_, m_u) in zip(mc_gpu.items(), mc_ungrouped.items()):
+        for name, v in m_g._state.items():
+            assert torch.equal(v, m_u._state[name]), f"grouped state {key}.{name} differs from the ungrouped run"
+    for key in v_ungrouped:
+        assert torch.equal(v_gpu[key], v_ungrouped[key]), f"grouped {key} differs from the ungrouped run"
     errs = {key: _check_values(key, v_gpu[key], v_cpu[key], VALUE_ATOL_BY_METRIC.get(key, VALUE_ATOL)) for key in v_cpu}
     assert v_gpu["confmat"].shape == (REPORT_CLASSES, REPORT_CLASSES) and mc_gpu["confmat"].confmat.dtype == torch.int64
-    print(f"forward step on the card (host clock, after a warm-up run): median {np.median(step_ms):.4f} ms, "
-          f"max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; states equal to the CPU run; max abs err "
-          f"against it {errs}; values " + ", ".join(f"{k} {float(v_gpu[k]):.6g}" for k in v_gpu if k != "confmat"))
+    print(f"compute groups {groups}; forward step on the card (host clock, after a warm-up run): grouped median "
+          f"{np.median(step_ms):.4f} ms (max {max(step_ms):.4f}), ungrouped median {np.median(step_ms_ungrouped):.4f} "
+          f"ms (max {max(step_ms_ungrouped):.4f}); compute {compute_ms:.4f} ms; grouped states and values equal to "
+          f"the ungrouped run bit for bit; states equal to the CPU run; max abs err against it {errs}; values "
+          + ", ".join(f"{k} {float(v_gpu[k]):.6g}" for k in v_gpu if k != "confmat"))
     report_step_ms = float(np.median(step_ms))
-    print(f"peak device memory of a step above its inputs: "
-          f"{_step_peak_mib(report, (report_probs[0], report_labels[0]), device):.1f} MiB")
+    report_ungrouped_step_ms = float(np.median(step_ms_ungrouped))
+    report_gpu, report_values = mc_gpu, v_gpu  # the sync phase's one-process reference
+    for name, make in (("grouped", report), ("ungrouped", report_ungrouped)):
+        print(f"peak device memory of a {name} step above its inputs: "
+              f"{_step_peak_mib(make, (report_probs[0], report_labels[0]), device):.1f} MiB")
+    del report_runs, mc_ungrouped, v_ungrouped
 
     def composed(dev):
         p = Precision(average="macro", num_classes=REPORT_CLASSES, device=dev)
@@ -775,12 +1024,17 @@ def main() -> int:
            f"{CURVE_CLASSES} classes; binary curves on {BINARY_ROWS} tied scores")
     _curves_phase(smi, device)
 
+    _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report and ranking collections, divergence cases")
+    _sync_phase(device, report_gpu, report_values)
+
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):
         print(f"{name} collection:")
         _profile(make, (probs, labels), device, ms_step)
-    print("report collection:")
-    _profile(report, (report_probs, report_labels), device, report_step_ms)
+    for name, make, ms_step in (("grouped", report, report_step_ms),
+                                ("ungrouped", report_ungrouped, report_ungrouped_step_ms)):
+        print(f"report collection, {name}:")
+        _profile(make, (report_probs, report_labels), device, ms_step)
     print("segmentation collection (with dice_score):")
     _profile(segmentation, (seg_probs, seg_labels), device, seg_step_ms, steps=SEG_STEPS - 1, per_step=dice_score)
 

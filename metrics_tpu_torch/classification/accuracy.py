@@ -4,7 +4,7 @@ Counterpart of ``metrics_tpu/classification/accuracy.py``: a
 :class:`StatScores` with extra ``correct``/``total`` states for subset
 accuracy, and the input mode latched at the first update.
 """
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -95,6 +95,24 @@ class Accuracy(StatScores):
 
         self.add_state("correct", default=torch.zeros((), dtype=torch.long), dist_reduce_fx="sum")
         self.add_state("total", default=torch.zeros((), dtype=torch.long), dist_reduce_fx="sum")
+
+    _group_shared_attrs = ("mode", "subset_accuracy")
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key: Accuracy's update (input-mode latch, the subset
+        branch, extra states) groups only with Accuracy of the same
+        configuration, never with the plain stat-score family."""
+        return (
+            "accuracy",
+            self.reduce,
+            self.mdmc_reduce,
+            self.threshold,
+            self.num_classes,
+            self.top_k,
+            self.multiclass,
+            self.ignore_index,
+            self.subset_accuracy,
+        )
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         """Accumulate either subset-accuracy counts or stat scores."""

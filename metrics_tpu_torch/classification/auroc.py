@@ -98,6 +98,15 @@ class AUROC(Metric):
         self.add_state("preds", default=[], dist_reduce_fx="cat")
         self.add_state("target", default=[], dist_reduce_fx="cat")
 
+    _group_shared_attrs = ("mode",)
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key: ``_auroc_update`` takes no configuration, so any
+        AUROC members share one preds/target accumulation (``average`` and
+        ``num_classes`` shape only ``compute``). Not the curve family's key:
+        that update reshapes where this one stores rows as they are."""
+        return ("auroc",)
+
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         preds, target, mode = _auroc_update(preds, target)
         self.preds.append(preds)

@@ -7,7 +7,7 @@ batched sort for all classes; list states (and multilabel input) build one
 precision–recall curve per class. The compute-group hooks of the JAX module
 wait for compute groups.
 """
-from typing import Any, Callable, List, Optional, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
 import torch
 
@@ -75,6 +75,17 @@ class AveragePrecision(Metric):
         self.average = average
         self.add_state("preds", default=[], dist_reduce_fx="cat")
         self.add_state("target", default=[], dist_reduce_fx="cat")
+
+    _group_shared_attrs = ("num_classes", "pos_label")
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key: for every ``average`` but ``"micro"`` the update
+        is the curve family's ``_precision_recall_curve_update``, so it shares
+        ROC's and PrecisionRecallCurve's key; ``"micro"`` also ravels
+        multilabel input and groups only with other micro instances."""
+        if self.average == "micro":
+            return ("clf_curve_micro", self.num_classes, self.pos_label)
+        return ("clf_curve", self.num_classes, self.pos_label)
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         preds, target, num_classes, pos_label = _average_precision_update(

@@ -3,7 +3,7 @@
 Counterpart of ``metrics_tpu/classification/hamming_distance.py``: int64
 correct/total "sum" states.
 """
-from typing import Any, Callable, Optional, Union
+from typing import Any, Callable, Optional, Tuple, Union
 
 import torch
 
@@ -52,6 +52,10 @@ class HammingDistance(Metric):
         self.add_state("correct", default=torch.zeros((), dtype=torch.long), dist_reduce_fx="sum")
         self.add_state("total", default=torch.zeros((), dtype=torch.long), dist_reduce_fx="sum")
         self.threshold = threshold
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key: the update depends on ``threshold`` alone."""
+        return ("hamming_distance", self.threshold)
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         correct, total = _hamming_distance_update(preds, target, self.threshold)

@@ -62,6 +62,12 @@ class PrecisionRecallCurve(Metric):
         self.add_state("preds", default=[], dist_reduce_fx="cat")
         self.add_state("target", default=[], dist_reduce_fx="cat")
 
+    _group_shared_attrs = ("num_classes", "pos_label")
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key of the curve family (see ``ROC``)."""
+        return ("clf_curve", self.num_classes, self.pos_label)
+
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         preds, target, num_classes, pos_label = _precision_recall_curve_update(
             preds, target, self.num_classes, self.pos_label

@@ -57,6 +57,15 @@ class ROC(Metric):
         self.add_state("preds", default=[], dist_reduce_fx="cat")
         self.add_state("target", default=[], dist_reduce_fx="cat")
 
+    _group_shared_attrs = ("num_classes", "pos_label")
+
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key of the curve family: ``_roc_update`` is
+        ``_precision_recall_curve_update``, so ROC, PrecisionRecallCurve and
+        non-micro AveragePrecision with equal ``(num_classes, pos_label)``
+        append the same rows and share one accumulation."""
+        return ("clf_curve", self.num_classes, self.pos_label)
+
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         preds, target, num_classes, pos_label = _roc_update(preds, target, self.num_classes, self.pos_label)
         self.preds.append(preds)

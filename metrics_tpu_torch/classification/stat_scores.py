@@ -90,6 +90,25 @@ class StatScores(Metric):
             else:
                 self.add_state(s, default=[], dist_reduce_fx=None)
 
+    def update_identity(self) -> Optional[Tuple]:
+        """Compute-group key of the stat-score family: every metric that
+        inherits this ``update`` unchanged (Precision, Recall, FBeta/F1,
+        Specificity, StatScores) folds a batch through the same
+        ``_stat_scores_update`` call, parameterized by these arguments alone,
+        so collection members with equal keys share one tp/fp/tn/fn
+        accumulation. A subclass that overrides ``update`` (``Accuracy``) is
+        excluded unless it declares its own key."""
+        return (
+            "stat_scores",
+            self.reduce,
+            self.mdmc_reduce,
+            self.threshold,
+            self.num_classes,
+            self.top_k,
+            self.multiclass,
+            self.ignore_index,
+        )
+
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:  # type: ignore[override]
         """Accumulate tp/fp/tn/fn from a batch of (preds, target)."""
         tp, fp, tn, fn = _stat_scores_update(

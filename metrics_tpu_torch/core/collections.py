@@ -1,22 +1,97 @@
 """``MetricCollection``: several metrics fed by one ``update``/``forward`` call.
 
-Counterpart of the base of ``metrics_tpu/core/collections.py``: a dict of
-metrics (sorted by key when built from a dict), prefix/postfix on the output
-keys, keyword filtering by each member's ``update`` signature, and
-update/forward/compute/reset/clone/state_dict. Compute groups, the fused
-collection sync and overlapped sync are not ported yet; each member syncs
-itself in its own ``compute()``.
+Counterpart of ``metrics_tpu/core/collections.py``: a dict of metrics (sorted
+by key when built from a dict), prefix/postfix on the output keys, keyword
+filtering by each member's ``update`` signature,
+update/forward/compute/reset/clone/state_dict, and its two performance seams:
 
-It is a ``torch.nn.ModuleDict``, as upstream TorchMetrics' is, so ``.to()``
-moves every member.
+- **Compute groups.** Members whose state schema
+  (:meth:`~metrics_tpu_torch.Metric.state_fingerprint`) and update
+  (:meth:`~metrics_tpu_torch.Metric.update_identity`) are the same run one
+  update per step and hold one copy of state: Precision, Recall, F1 and
+  Specificity with equal arguments pay for one stat-score update, and ROC,
+  PrecisionRecallCurve and AveragePrecision share one preds/target
+  accumulation. Each member still computes its own value, so the results
+  are the same bits as ungrouped. ``compute_groups=True`` (the default)
+  groups automatically, a list of key lists pins the groups, ``False`` or
+  ``METRICS_TPU_COMPUTE_GROUPS=0`` disables.
+- **The fused collection sync.** :meth:`MetricCollection.sync` combines
+  every member's state (one per group) into one key-prefixed dict and syncs
+  it through one health header and one bucketed plan
+  (``parallel/bucketing.py``); ``compute()`` in a distributed run syncs the
+  collection so, once, and the members compute from the synced state.
+
+Overlapped sync is not ported yet. It is a ``torch.nn.ModuleDict``, as
+upstream TorchMetrics' is, so ``.to()`` moves every member.
 """
+import os
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Dict, Iterable, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
-from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.utils.exceptions import StateDictMismatchError
+from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.core.metric import (
+    Metric,
+    _check_on_error,
+    _ComputeGroup,
+    _fresh_state_value,
+)
+from metrics_tpu_torch.parallel import bucketing
+from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.parallel.health import FUSED_KEY_SEP, is_missing_rank_error
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, StateDictMismatchError, SyncError
+
+#: Env escape hatch: 0/false/off/no disables compute-group formation.
+COMPUTE_GROUPS_ENV = "METRICS_TPU_COMPUTE_GROUPS"
+
+
+def compute_groups_enabled() -> bool:
+    """Default grouping policy: on, unless the env knob opts the process out."""
+    return os.environ.get(COMPUTE_GROUPS_ENV, "1").strip().lower() not in ("0", "false", "off", "no")
+
+
+def _static_grouping_hazards(m: Metric) -> List[str]:
+    """Reasons a class's update provably breaks the grouping contract. The
+    JAX package reads them from its metricslint analysis; that pass is not
+    ported yet (ROADMAP A11), and this returns what the JAX package does with
+    the analysis off: none."""
+    return []
+
+
+def _leaf_concrete_equal(a: Any, b: Any) -> bool:
+    """Bit-equality of two state leaves (reads the device)."""
+    if a is b:
+        return True
+    if isinstance(a, CatBuffer) or isinstance(b, CatBuffer):
+        if not (isinstance(a, CatBuffer) and isinstance(b, CatBuffer)):
+            return False
+        if (a.capacity, a.count, a.overflowed) != (b.capacity, b.count, b.overflowed):
+            return False
+        if (a.buffer is None) != (b.buffer is None):
+            return False
+        return a.buffer is None or _leaf_concrete_equal(a.buffer, b.buffer)
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        if not (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))) or len(a) != len(b):
+            return False
+        return all(_leaf_concrete_equal(x, y) for x, y in zip(a, b))
+    return (
+        a.dtype == b.dtype and a.shape == b.shape and a.device == b.device and bool(torch.equal(a, b))
+    )
+
+
+def _concrete_states_equal(a: Metric, b: Metric) -> bool:
+    """Can ``b`` share ``a``'s state right now? Equal update counts (the sync
+    header would diverge otherwise) and bit-equal state leaves."""
+    if a._is_synced or b._is_synced:
+        return False
+    if a._update_count != b._update_count:
+        return False
+    if sorted(a._defaults) != sorted(b._defaults):
+        return False
+    return all(_leaf_concrete_equal(getattr(a, name), getattr(b, name)) for name in a._defaults)
 
 
 class MetricCollection(nn.ModuleDict):
@@ -24,9 +99,16 @@ class MetricCollection(nn.ModuleDict):
     call — pass the superset of inputs once and each member picks the
     keyword arguments its ``update`` accepts.
 
+    A direct ``update``/``forward``/``reset``/``load_state_dict``, cast or
+    state assignment on one grouped member copies its state and takes it out
+    of its group, so its siblings never see it; a group whose dispatch
+    raised breaks up, and ``reset()`` plans the groups again.
+
     Args:
         metrics: one Metric, a list/tuple of Metrics, or a dict name->Metric.
         prefix / postfix: added to every key in the output dict.
+        compute_groups: ``True`` groups schema- and update-identical members,
+            a list of key lists pins the groups, ``False`` disables.
 
     Example:
         >>> import torch
@@ -44,10 +126,23 @@ class MetricCollection(nn.ModuleDict):
         *additional_metrics: Metric,
         prefix: Optional[str] = None,
         postfix: Optional[str] = None,
+        compute_groups: Union[bool, Sequence[Sequence[str]]] = True,
     ) -> None:
         super().__init__()
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
+        if not (
+            isinstance(compute_groups, bool)
+            or (
+                isinstance(compute_groups, (list, tuple))
+                and all(isinstance(g, (list, tuple)) and all(isinstance(k, str) for k in g) for g in compute_groups)
+            )
+        ):
+            raise MetricsTPUUserError(
+                f"`compute_groups` must be a bool or a list of lists of metric keys, got {compute_groups!r}"
+            )
+        self._compute_groups_arg = compute_groups
+        self._groups_stale = True
         self.add_metrics(metrics, *additional_metrics)
 
     @staticmethod
@@ -106,6 +201,8 @@ class MetricCollection(nn.ModuleDict):
                         self[k] = v
         else:
             raise ValueError("Unknown input to MetricCollection.")
+        # membership changed: plan the groups again at the next dispatch
+        self._groups_stale = True
 
     def _set_name(self, base: str) -> str:
         name = base if self.prefix is None else self.prefix + base
@@ -123,24 +220,372 @@ class MetricCollection(nn.ModuleDict):
             return super().keys()
         return [self._set_name(k) for k in super().keys()]
 
+    # ---------------- compute-group planner ----------------
+
+    @property
+    def compute_group_keys(self) -> List[List[str]]:
+        """The compute groups as lists of member keys, in collection order
+        (empty when grouping is off or no members qualify). Plans lazily."""
+        self._ensure_groups()
+        groups: Dict[int, List[str]] = {}
+        for k, m in super().items():
+            if m._compute_group is not None:
+                groups.setdefault(id(m._compute_group), []).append(k)
+        return [keys for keys in groups.values() if len(keys) >= 2]
+
+    def _iter_group_objects(self) -> Iterator[_ComputeGroup]:
+        seen: set = set()
+        for m in super().values():
+            g = m._compute_group
+            if g is not None and id(g) not in seen:
+                seen.add(id(g))
+                yield g
+
+    def _ensure_groups(self) -> None:
+        """Plan the compute groups, when membership, a reset, a load or a
+        failed dispatch made the plan stale.
+
+        Members group when they have (a) an equal, non-``None``
+        ``update_identity``, (b) an equal ``state_fingerprint``, (c) equal
+        sync configuration (a group syncs through one member) and (d)
+        bit-equal current state. The same construction and feed give the
+        same groups on every rank; where ranks diverged, the fused sync's
+        combined header catches the different key sets before any payload.
+        """
+        if not self._groups_stale:
+            return
+        self._groups_stale = False
+        self._dissolve_groups()
+        arg = self._compute_groups_arg
+        if arg is False or not compute_groups_enabled():
+            return
+        members = list(super().items())
+        if len(members) < 2:
+            return
+        if isinstance(arg, (list, tuple)):
+            self._link_explicit_groups(arg, dict(members))
+            return
+        # a metric registered under several keys updates once per key, and
+        # must never group with itself
+        occurrences: Dict[int, int] = {}
+        for _k, m in members:
+            occurrences[id(m)] = occurrences.get(id(m), 0) + 1
+        buckets: Dict[Any, List[Tuple[str, Metric]]] = {}
+        for k, m in members:
+            if m._is_synced or occurrences[id(m)] > 1:
+                continue
+            ident = m._effective_update_identity()
+            if ident is None or _static_grouping_hazards(m):
+                continue
+            key = (ident, m.state_fingerprint()) + self._sync_config_key(m)
+            buckets.setdefault(key, []).append((k, m))
+        for bucket in buckets.values():
+            if len(bucket) < 2:
+                continue
+            # only members that are bit-equal right now may share
+            subgroups: List[List[Tuple[str, Metric]]] = []
+            for k, m in bucket:
+                for sg in subgroups:
+                    if _concrete_states_equal(sg[0][1], m):
+                        sg.append((k, m))
+                        break
+                else:
+                    subgroups.append([(k, m)])
+            for sg in subgroups:
+                if len(sg) >= 2:
+                    self._link_group(sg)
+
+    @staticmethod
+    def _sync_config_key(m: Metric) -> Tuple:
+        """What a group must agree on beyond the schema: it syncs and merges
+        through one member, whose knobs speak for all, on one device."""
+        return (
+            None if m.process_group is None else id(m.process_group),
+            None if m.dist_sync_fn is None else id(m.dist_sync_fn),
+            m.sync_on_error,
+            bool(m.sync_strict_update_count),
+            m.sync_fused,
+            m.sync_timeout,
+            id(type(m).merge_states),
+            str(m.device),
+        )
+
+    def _link_explicit_groups(self, spec: Sequence[Sequence[str]], by_key: Dict[str, Metric]) -> None:
+        seen: set = set()
+        occurrences: Dict[int, int] = {}
+        for m in by_key.values():
+            occurrences[id(m)] = occurrences.get(id(m), 0) + 1
+        for group_keys in spec:
+            keys = list(group_keys)
+            for k in keys:
+                if k not in by_key:
+                    raise MetricsTPUUserError(
+                        f"compute_groups override names unknown metric {k!r}; collection keys are {sorted(by_key)}"
+                    )
+                if k in seen:
+                    raise MetricsTPUUserError(f"compute_groups override lists metric {k!r} in more than one group")
+                seen.add(k)
+            if len(keys) < 2:
+                continue
+            ms = [by_key[k] for k in keys]
+            if any(occurrences[id(m)] > 1 for m in ms):
+                raise MetricsTPUUserError(
+                    f"compute_groups override groups {keys}, but at least one of those metrics is "
+                    "registered under several collection keys: a metric registered under several "
+                    "keys updates once per key and cannot join a compute group."
+                )
+            fp0, cfg0 = ms[0].state_fingerprint(), self._sync_config_key(ms[0])
+            for k, m in zip(keys[1:], ms[1:]):
+                if m.state_fingerprint() != fp0:
+                    raise MetricsTPUUserError(
+                        f"compute_groups override groups {keys}, but {k!r} declares a different state "
+                        f"schema than {keys[0]!r}: compute-group members must have identical "
+                        "`add_state` declarations (name/shape/dtype/default/dist_reduce_fx)."
+                    )
+                if self._sync_config_key(m) != cfg0:
+                    raise MetricsTPUUserError(
+                        f"compute_groups override groups {keys}, but {k!r} is configured differently "
+                        f"from {keys[0]!r} (process_group / dist_sync_fn / sync_on_error / "
+                        "sync_strict_update_count / sync_fused / sync_timeout / merge_states override "
+                        "/ device): a group syncs through one member, so these must match."
+                    )
+                if not _concrete_states_equal(ms[0], m):
+                    raise MetricsTPUUserError(
+                        f"compute_groups override groups {keys}, but the current states of {keys[0]!r} "
+                        f"and {k!r} differ: group members must start from identical (e.g. freshly "
+                        "reset) state."
+                    )
+            self._link_group(list(zip(keys, ms)))
+
+    def _link_group(self, sg: List[Tuple[str, Metric]]) -> None:
+        group = _ComputeGroup([m for _, m in sg])
+        for m in group.members:
+            object.__setattr__(m, "_compute_group", group)
+        self._relink_group(group)
+
+    def _relink_group(self, group: _ComputeGroup, source: Optional[Metric] = None) -> None:
+        """Point every member's states at ``source``'s objects (no copies) and
+        copy the family's declared update side-effect attributes."""
+        if not group.members:
+            return
+        source = group.members[0] if source is None else source
+        for m in group.members:
+            if m is source:
+                continue
+            for name in source._defaults:
+                nn.Module.__setattr__(m, name, getattr(source, name))
+            for attr in type(m)._group_shared_attrs:
+                if hasattr(source, attr):
+                    setattr(m, attr, getattr(source, attr))
+
+    def _relink_groups(self) -> None:
+        for group in self._iter_group_objects():
+            self._relink_group(group)
+
+    def _dissolve_groups(self) -> None:
+        """Unlink every group. Former siblings would go on sharing their
+        state objects, which ``forward`` and list states write in place, so
+        all but the first take copies; a re-planned group links again."""
+        for group in list(self._iter_group_objects()):
+            for i, m in enumerate(group.members):
+                object.__setattr__(m, "_compute_group", None)
+                if i:
+                    for k, v in m._state.items():
+                        nn.Module.__setattr__(m, k, _fresh_state_value(v))
+            group.members.clear()
+
+    def _break_group(self, group: _ComputeGroup) -> None:
+        """Disband a group whose dispatch raised mid-mutation: every member
+        takes a copy of the state it sees and leaves, as ungrouped members
+        would stand after the same failure (the member that was updating
+        keeps its partial state, the others their accumulation). The groups
+        are planned again at the next dispatch."""
+        members = list(group.members)
+        group.members.clear()
+        for m in members:
+            object.__setattr__(m, "_compute_group", None)
+            for k, v in m._state.items():
+                nn.Module.__setattr__(m, k, _fresh_state_value(v))
+        self._groups_stale = True
+
+    # ---------------- forward / update / compute ----------------
+
     def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
-        """Each member's ``forward``: accumulate, and return the batch values."""
-        return {self._set_name(k): m(*args, **m._filtered_kwargs(kwargs)) for k, m in super().items()}
+        """Each member's ``forward`` (one per compute group): accumulate, and
+        return the batch values."""
+        self._ensure_groups()
+        out: Dict[str, Any] = {}
+        group_values: Dict[int, Dict[int, Any]] = {}
+        for k, m in super().items():
+            g = m._compute_group
+            if g is None:
+                out[self._set_name(k)] = m(*args, **m._filtered_kwargs(kwargs))
+            else:
+                if id(g) not in group_values:
+                    group_values[id(g)] = self._group_forward(g, m, args, kwargs)
+                out[self._set_name(k)] = group_values[id(g)][id(m)]
+        return out
 
     def update(self, *args: Any, **kwargs: Any) -> None:
+        """Each member's ``update`` (one per compute group)."""
+        self._ensure_groups()
+        handled: set = set()
         for m in self.values():
-            m.update(*args, **m._filtered_kwargs(kwargs))
+            if id(m) in handled:
+                continue
+            g = m._compute_group
+            if g is None:
+                m.update(*args, **m._filtered_kwargs(kwargs))
+            else:
+                handled.update(id(p) for p in g.members)
+                self._group_update(g, m, args, kwargs)
+
+    def _group_update(self, group: _ComputeGroup, source: Metric, args: Tuple, kwargs: Dict[str, Any]) -> None:
+        """One update for the whole group: ``source`` (the group's first
+        member in collection order) runs it, the others re-link to it."""
+        if any(p._is_synced for p in group.members if p is not source):
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        group.dispatching = True
+        try:
+            source.update(*args, **source._filtered_kwargs(kwargs))
+        except BaseException:
+            # failed mid-mutation: no later re-link may copy the partial state
+            group.dispatching = False
+            self._break_group(group)
+            raise
+        group.dispatching = False
+        for p in group.members:
+            if p is not source:
+                p._computed = None
+                p._update_called = True
+                p._update_count = source._update_count
+        self._relink_group(group, source)
+
+    def _group_forward(
+        self, group: _ComputeGroup, source: Metric, args: Tuple, kwargs: Dict[str, Any]
+    ) -> Dict[int, Any]:
+        """The group's ``forward``: one update on a fresh batch state, every
+        member's batch value from it, then one merge into the shared
+        accumulation (in place, as ``Metric.forward``). Returns
+        ``{id(member): batch value}``."""
+        if any(p._is_synced for p in group.members):
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        if all(not p.compute_on_step for p in group.members):
+            self._group_update(group, source, args, kwargs)
+            return {id(p): None for p in group.members}
+        accumulated = source._state
+        try:
+            source._restore(source._batch_default_state())
+            group.dispatching = True
+            try:
+                source.update(*args, **source._filtered_kwargs(kwargs))
+            finally:
+                group.dispatching = False
+            for p in group.members:
+                if p is not source:
+                    p._update_called = True
+                    p._computed = None
+            self._relink_group(group, source)  # the members see the batch state
+            values: Dict[int, Any] = {}
+            for p in group.members:
+                if not p.compute_on_step:
+                    values[id(p)] = None
+                    continue
+                p._to_sync = p.dist_sync_on_step
+                p._computed = None
+                try:
+                    p._forward_cache = p.compute()
+                finally:
+                    p._to_sync = True
+                p._computed = None
+                values[id(p)] = p._forward_cache
+            batch_state = source._state
+            if source._can_merge():
+                if type(source).merge_states is Metric.merge_states:
+                    merged = source._merge_states(accumulated, batch_state, in_place=True)
+                else:
+                    merged = source.merge_states(accumulated, batch_state)
+                source._restore(merged)
+            else:
+                # no algebraic merge: the reference's double update
+                source._restore(accumulated)
+                group.dispatching = True
+                try:
+                    source.update(*args, **source._filtered_kwargs(kwargs))
+                finally:
+                    group.dispatching = False
+        except BaseException:
+            self._break_group(group)
+            raise
+        for p in group.members:
+            if p is not source:
+                p._update_count = source._update_count
+        self._relink_group(group, source)
+        return values
 
     def compute(self) -> Dict[str, Any]:
-        """Every member's value (each member syncs itself first)."""
-        return {self._set_name(k): m.compute() for k, m in super().items()}
+        """Every member's value. In a distributed run the collection syncs
+        once, through the fused path, and the members compute from the
+        synced state; otherwise each member syncs itself."""
+        if all(m._computed is not None for m in self.values()) or not self._fused_sync_eligible(None):
+            # every value cached (no update since the last compute) needs no
+            # sync, as each member's own compute() would not sync either
+            return {self._set_name(k): m.compute() for k, m in super().items()}
+        self.sync()
+        try:
+            return {self._set_name(k): self._compute_member(m) for k, m in super().items()}
+        finally:
+            self.unsync()
+
+    @staticmethod
+    def _compute_member(m: Metric) -> Any:
+        if m._is_synced:
+            return m.compute()
+        # the collection's sync degraded to this member's local state: it
+        # must not sync again on its own
+        m._to_sync = False
+        try:
+            return m.compute()
+        finally:
+            m._to_sync = True
 
     def reset(self) -> None:
-        for m in self.values():
-            m.reset()
+        """Reset every member; the groups are planned again at the next
+        dispatch, so members that detached may rejoin."""
+        groups = list(self._iter_group_objects())
+        for g in groups:
+            g.dispatching = True
+        try:
+            for m in self.values():
+                m.reset()
+        finally:
+            for g in groups:
+                g.dispatching = False
+                self._relink_group(g)
+        self._groups_stale = True
+
+    def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "MetricCollection":
+        # a move or cast of the whole collection is not a stray mutation of
+        # one member: the groups stay, re-linked onto the moved states
+        groups = list(self._iter_group_objects())
+        for g in groups:
+            g.dispatching = True
+        try:
+            return super()._apply(fn, *args, **kwargs)
+        finally:
+            for g in groups:
+                g.dispatching = False
+                self._relink_group(g)
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
-        """Deep copy, optionally with a new prefix/postfix."""
+        """Deep copy (compute groups included), optionally with a new
+        prefix/postfix."""
         mc = deepcopy(self)
         if prefix:
             mc.prefix = self._check_arg(prefix, "prefix")
@@ -153,7 +598,10 @@ class MetricCollection(nn.ModuleDict):
             m.persistent(mode)
 
     def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = False) -> None:  # type: ignore[override]
-        """Per-member load of a ``state_dict()`` snapshot (keys ``"<member>.<state>"``).
+        """Per-member load of a ``state_dict()`` snapshot (keys
+        ``"<member>.<state>"``; grouped members each write the shared state
+        under their own key). Members leave their groups while loading; the
+        groups are planned again at the next dispatch, from the loaded states.
 
         With ``strict=True`` the snapshot must cover every member's every
         declared state and carry no other key, or a
@@ -171,3 +619,194 @@ class MetricCollection(nn.ModuleDict):
                 )
         for k, m in super().items():
             m.load_state_dict(state_dict, prefix=f"{k}.")
+        self._groups_stale = True
+
+    # ---------------- host sync ----------------
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ) -> None:
+        """Sync every member.
+
+        The default is the fused path: every member's state (one per compute
+        group) in one key-prefixed dict, through one health header and one
+        bucketed plan. It raises before any member changes. When it fails
+        and some member would degrade (``on_error`` of ``"local"`` or
+        ``"warn"``, or ``on_missing="local"`` and a missing-rank failure),
+        every member syncs on its own instead and applies its own policy;
+        the outcome of the header is the same on every rank, so all ranks
+        fall back together. A member with a custom ``dist_sync_fn``, its own
+        process group, ``sync_fused=False`` or strict update counts, or
+        ``METRICS_TPU_FUSED_SYNC=0``, makes every member sync on its own.
+        That loop syncs every member, group siblings included, so its
+        collectives do not depend on the groups; if a member raises, those
+        already synced are restored first.
+        """
+        if on_error is not None:
+            _check_on_error(on_error)
+        if on_missing is not None:
+            _sync.check_on_missing(on_missing)
+        self._ensure_groups()
+        if should_sync and dist_sync_fn is None and self._fused_sync_eligible(distributed_available):
+            try:
+                self._sync_fused(timeout=timeout, on_missing=on_missing)
+                return
+            except SyncError as err:
+                modes = [m.sync_on_error if on_error is None else on_error for m in self.values()]
+                if all(mode == "raise" for mode in modes) and not self._missing_degrades(err, on_missing):
+                    raise  # nothing was synced: all-or-nothing holds
+        synced: List[Metric] = []
+        try:
+            for m in self.values():
+                m.sync(
+                    dist_sync_fn=dist_sync_fn,
+                    should_sync=should_sync,
+                    distributed_available=distributed_available,
+                    on_error=on_error,
+                    on_missing=on_missing,
+                    timeout=timeout,
+                )
+                if m._is_synced:
+                    synced.append(m)
+        except Exception:
+            for m in synced:
+                m.unsync()
+            raise
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore every synced member's local state (members whose sync
+        degraded are skipped) and re-link the groups."""
+        if not should_unsync:
+            return
+        for m in self.values():
+            if m._is_synced:
+                m.unsync()
+        self._relink_groups()
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ) -> Iterator["MetricCollection"]:
+        """Sync on enter, restore the local states on exit."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+            on_error=on_error,
+            on_missing=on_missing,
+            timeout=timeout,
+        )
+        try:
+            yield self
+        finally:
+            self.unsync(should_unsync=should_unsync)
+
+    def _missing_degrades(self, err: SyncError, on_missing: Optional[str]) -> bool:
+        """Does an ``on_missing="local"`` policy (the override, or some
+        member's) degrade this missing-rank failure?"""
+        if not is_missing_rank_error(err):
+            return False
+        return any((m.sync_on_missing if on_missing is None else on_missing) == "local" for m in self.values())
+
+    def _effective_on_missing(self, on_missing: Optional[str]) -> str:
+        """The policy of a combined sync: the override, else the members'
+        common ``sync_on_missing``, else ``"raise"``."""
+        if on_missing is not None:
+            return on_missing
+        modes = {m.sync_on_missing for m in self.values()}
+        return modes.pop() if len(modes) == 1 else "raise"
+
+    def _effective_member_timeout(self, timeout: Optional[float]) -> Optional[float]:
+        member_timeouts = [m.sync_timeout for m in self.values() if m.sync_timeout is not None]
+        if timeout is not None:
+            return timeout
+        return min(member_timeouts) if member_timeouts else None
+
+    def _fused_sync_eligible(self, distributed_available: Optional[Callable]) -> bool:
+        """Can the collection sync through one combined plan? Every member on
+        the built-in transport over one process group, none synced already,
+        none strict about update counts (the combined header carries one
+        summed count), the fused knob on, and a distributed world."""
+        members = list(self.values())
+        if not members or not bucketing.fused_sync_enabled():
+            return False
+        group = members[0].process_group
+        if any(
+            m.dist_sync_fn is not None
+            or m.process_group is not group
+            or m._is_synced
+            or m.sync_fused is False
+            or m.sync_strict_update_count
+            for m in members
+        ):
+            return False
+        if any(FUSED_KEY_SEP in key for key in self.keys()):
+            return False
+        return all((distributed_available or m._distributed_available)() for m in members)
+
+    def _combined_payload(self, owners: List[Tuple[str, Metric, List[Metric]]]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The key-prefixed combined state and reductions of the owners."""
+        combined: Dict[str, Any] = {}
+        reductions: Dict[str, Any] = {}
+        for key, m, _peers in owners:
+            for name, value in m._state.items():
+                combined[f"{key}{FUSED_KEY_SEP}{name}"] = value
+                reductions[f"{key}{FUSED_KEY_SEP}{name}"] = m._reductions.get(name)
+        return combined, reductions
+
+    def _sync_state_owners(self) -> List[Tuple[str, Metric, List[Metric]]]:
+        """One ``(key, metric, group siblings)`` per unique state: a compute
+        group contributes its state once."""
+        owners: List[Tuple[str, Metric, List[Metric]]] = []
+        seen: set = set()
+        for key, m in super().items():
+            g = m._compute_group
+            if g is None:
+                owners.append((key, m, []))
+            elif id(g) not in seen:
+                seen.add(id(g))
+                owners.append((key, m, [p for p in g.members if p is not m]))
+        return owners
+
+    def _sync_fused(self, timeout: Optional[float] = None, on_missing: Optional[str] = None) -> None:
+        """One header and one bucketed plan over every unique member state.
+        The header's ``update_count`` is the sum over the owners (which is
+        why strict members take the per-member loop). Raises before any
+        member changes."""
+        owners = self._sync_state_owners()
+        combined, reductions = self._combined_payload(owners)
+        members = list(self.values())
+        synced = _sync.host_sync_state(
+            combined,
+            reductions,
+            members[0].process_group,
+            update_count=sum(m._update_count for _, m, _p in owners),
+            timeout=self._effective_member_timeout(timeout),
+            metric_name=f"MetricCollection[{', '.join(self.keys())}]",
+            fused=True,
+            on_missing=self._effective_on_missing(on_missing),
+        )
+        for key, m, peers in owners:
+            m._cache = m._state
+            m._sync_degraded = False
+            m._restore({name: synced[f"{key}{FUSED_KEY_SEP}{name}"] for name in m._defaults})
+            m._is_synced = True
+            for p in peers:
+                p._cache = dict(m._cache)
+                p._sync_degraded = False
+                for name in m._defaults:
+                    nn.Module.__setattr__(p, name, getattr(m, name))
+                p._is_synced = True

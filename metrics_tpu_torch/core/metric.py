@@ -6,7 +6,10 @@ compute cache and the compute-before-update warning, ``forward`` (batch value
 plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
 ``reset``, ``clone``, ``state_dict``/``load_state_dict``, pickling,
 ``set_dtype`` with its per-update persistence, the operator overloads and
-:class:`CompositionalMetric`.
+:class:`CompositionalMetric`; the health-checked sync with its ``on_error`` /
+``on_missing`` degradation ladder and watchdog timeout, ``check_finite``
+screening, and the compute-group protocol ``MetricCollection`` plans with
+(``state_fingerprint``, ``update_identity``, copy-on-write detach).
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
 states are registered buffers (so ``.to()``/``.cuda()`` move them), list
@@ -17,27 +20,42 @@ place; every update assigns a new tensor, so a snapshot (the sync cache, a
 forward's accumulated state) is a dict of references, not copies. A
 CatBuffer is written in place by its ``append``; every path here that would
 let two holders see one buffer hands one of them fresh storage instead
-(``core/cat_buffer.py``).
+(``core/cat_buffer.py``). Members of a compute group hold the same state
+objects; a member that leaves its group takes a clone of every leaf, since
+``forward`` merges into its accumulation's CatBuffers in place.
 """
 import functools
 import inspect
+import warnings
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
-from metrics_tpu_torch.parallel.sync import distributed_available, host_sync_state
+from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.parallel.health import NONFINITE_STATE, is_missing_rank_error, state_poisoned
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
+    NonFiniteStateError,
     StateDictMismatchError,
     StateSchemaError,
+    SyncError,
 )
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "cat", "max", "min")
+
+#: Accepted ``on_error`` / ``sync_on_error`` degradation modes.
+_ON_ERROR_MODES = ("raise", "local", "warn")
+
+
+def _check_on_error(on_error: str) -> str:
+    if on_error not in _ON_ERROR_MODES:
+        raise MetricsTPUUserError(f"`on_error` must be one of {_ON_ERROR_MODES}, got {on_error!r}")
+    return on_error
 
 
 # module-level named operators: picklable, unlike lambdas
@@ -83,6 +101,67 @@ def _cast_floating(state: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
         return cast(v)
 
     return {k: cast_value(v) for k, v in state.items()}
+
+
+def _tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for x in tree for leaf in _tensor_leaves(x)]
+    if isinstance(tree, dict):
+        return [leaf for x in tree.values() for leaf in _tensor_leaves(x)]
+    return []
+
+
+def _leaf_nonfinite(x: Any) -> Optional[torch.Tensor]:
+    if not isinstance(x, torch.Tensor) or not (x.is_floating_point() or x.is_complex()):
+        return None
+    return torch.logical_not(torch.isfinite(x).all())
+
+
+def _update_nonfinite_flag(
+    state: Dict[str, Any], inputs: Any, prev_list_lens: Dict[str, int], device: torch.device
+) -> torch.Tensor:
+    """int32 0/1 on ``device``: NaN/Inf brought in by this ``update``, with no
+    host read. Screens the update's float inputs, the tensor states and the
+    list entries this update appended (``prev_list_lens`` holds each list's
+    length before it). CatBuffer bodies are not scanned per update (their
+    rows are the screened inputs); the exact whole-state scan runs once at
+    the sync and compute boundary (``parallel/health.py::state_poisoned``)."""
+    bad = torch.zeros((), dtype=torch.bool, device=device)
+    leaves = _tensor_leaves(inputs)
+    for name, v in state.items():
+        if name == NONFINITE_STATE or isinstance(v, CatBuffer):
+            continue
+        leaves += v[prev_list_lens.get(name, 0):] if isinstance(v, list) else [v]
+    for leaf in leaves:
+        b = _leaf_nonfinite(leaf)
+        if b is not None:
+            bad = torch.logical_or(bad, b.to(device))
+    return bad.to(torch.int32)
+
+
+class _ComputeGroup:
+    """The link between the members of a ``MetricCollection`` compute group:
+    every member's state attributes hold the same objects, so the group pays
+    for one update and one copy of state. ``dispatching`` is True only while
+    the collection drives a group-level operation, which tells a sanctioned
+    shared-state mutation from a stray one that must detach first."""
+
+    __slots__ = ("members", "dispatching")
+
+    def __init__(self, members: List["Metric"]) -> None:
+        self.members = members
+        self.dispatching = False
+
+
+def _fresh_state_value(v: Any) -> Any:
+    """A copy of a state value on storage of its own."""
+    if isinstance(v, list):
+        return [x.clone() for x in v]
+    if isinstance(v, CatBuffer):
+        return CatBuffer(v.capacity, None if v.buffer is None else v.buffer.clone(), v.count, v.overflowed)
+    return v.clone()
 
 
 def _copy_state_value(v: Any) -> Any:
@@ -177,9 +256,43 @@ class Metric(nn.Module):
             replacing the built-in sync.
         device: where the states live. ``None`` means CUDA, and raises when
             CUDA is unavailable; pass ``"cpu"`` to run on the host.
+        check_finite: screen every ``update`` for NaN/Inf (see
+            :meth:`enable_check_finite`).
+        sync_on_error: what a failed host sync does: ``"raise"`` the typed
+            ``SyncError``; ``"local"`` keep this process's local state with a
+            rank-zero warning; ``"warn"`` the same, warning on every rank.
+        sync_on_missing: what a missing-rank failure (a watchdog timeout or a
+            divergent header) does: ``"raise"`` leaves it to ``on_error``;
+            ``"local"`` degrades to local state even under
+            ``on_error="raise"``.
+        sync_timeout: watchdog timeout in seconds of this metric's host
+            collectives; ``None`` reads ``METRICS_TPU_SYNC_TIMEOUT_S``
+            (default 600), ``0`` disables the watchdog.
+
+    ``sync_strict_update_count`` (update-count skew raises instead of
+    warning) and ``sync_fused`` (``None`` follows ``METRICS_TPU_FUSED_SYNC``,
+    ``False`` forces the per-leaf payload path) are plain attributes, as in
+    the JAX package, so they can be set on any constructed metric.
     """
 
     is_differentiable: Optional[bool] = None
+
+    #: Update-count skew at sync raises StateDivergenceError on every rank.
+    sync_strict_update_count: bool = False
+
+    #: Bucketed (fused) host-sync payload: ``None`` follows the env knob.
+    sync_fused: Optional[bool] = None
+
+    #: The compute group this metric shares state with (set by
+    #: ``MetricCollection``), or ``None``.
+    _compute_group: Optional[_ComputeGroup] = None
+
+    #: Instance attributes an update writes as side effects (an input-mode
+    #: latch, an inferred ``num_classes``): after a group dispatch the
+    #: collection copies them from the member that ran the update to the
+    #: others. A family that declares ``update_identity`` and latches
+    #: attributes in ``update`` must list them here.
+    _group_shared_attrs: Tuple[str, ...] = ()
 
     def __init__(
         self,
@@ -188,6 +301,10 @@ class Metric(nn.Module):
         process_group: Optional[Any] = None,
         dist_sync_fn: Optional[Callable] = None,
         device: Optional[Union[str, torch.device]] = None,
+        check_finite: bool = False,
+        sync_on_error: str = "raise",
+        sync_on_missing: str = "raise",
+        sync_timeout: Optional[float] = None,
     ) -> None:
         super().__init__()
         self._device = resolve_device(device)
@@ -198,14 +315,30 @@ class Metric(nn.Module):
         self.dist_sync_on_step = dist_sync_on_step
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
+        self.sync_on_error = _check_on_error(sync_on_error)
+        self.sync_on_missing = _sync.check_on_missing(sync_on_missing)
+        self.sync_timeout = sync_timeout
         self._update_called = False
         self._update_count = 0
         self._computed: Any = None
         self._forward_cache: Any = None
         self._to_sync = True
         self._is_synced = False
+        self._sync_degraded = False
         self._cache: Optional[Dict[str, Any]] = None
         self._dtype: Optional[torch.dtype] = None
+        self.check_finite = False
+        if check_finite:
+            self.enable_check_finite()
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        group = self.__dict__.get("_compute_group")
+        if group is not None and not group.dispatching and name in self._defaults:
+            # a direct state assignment on a grouped member (m.tp = ...) is
+            # an out-of-group mutation: leave the group first, or the next
+            # group dispatch would revert it when re-linking the members
+            self._group_detach_if_stray()
+        super().__setattr__(name, value)
 
     # ------------------------------------------------------------------
     # state declaration
@@ -257,12 +390,15 @@ class Metric(nn.Module):
         return {name: getattr(self, name) for name in self._defaults}
 
     def _restore(self, state: Dict[str, Any]) -> None:
+        # nn.Module's own setattr: restoring (a sync, its unsync, a group
+        # re-link) is not a stray mutation that leaves a compute group
         for k, v in state.items():
-            setattr(self, k, _copy_state_value(v))
+            nn.Module.__setattr__(self, k, _copy_state_value(v))
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
         # buffers move with nn.Module's own _apply; the defaults and the
         # list states are not buffers and move here
+        self._group_detach_if_stray()
         this = super()._apply(fn, *args, **kwargs)
         for name, default in this._defaults.items():
             live = getattr(this, name)
@@ -273,7 +409,7 @@ class Metric(nn.Module):
             if isinstance(live, CatBuffer):
                 live._apply(fn)
             elif isinstance(live, list):
-                setattr(this, name, [fn(v) for v in live])
+                nn.Module.__setattr__(this, name, [fn(v) for v in live])
         # a cast of every floating dtype to one (``half()``, ``.to(dtype)``,
         # ``set_dtype``, also from a parent module) is recorded, so that the
         # update wrapper re-casts after every update
@@ -330,6 +466,9 @@ class Metric(nn.Module):
             self.update(*args, **kwargs)
             return None
 
+        # a stray forward on a grouped member leaves the group before the
+        # accumulation is set aside: the merge below appends into it in place
+        self._group_detach_if_stray()
         accumulated = self._state
         self._restore(self._batch_default_state())
         self.update(*args, **kwargs)
@@ -386,38 +525,120 @@ class Metric(nn.Module):
         dist_sync_fn: Optional[Callable] = None,
         should_sync: bool = True,
         distributed_available: Optional[Callable] = None,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
     ) -> None:
         """Replace the local state by its cross-process reduction, keeping the
         local state to restore at :meth:`unsync`.
 
         A no-op unless more than one process takes part (or
         ``distributed_available()`` says so). ``dist_sync_fn`` (or the
-        constructor's) replaces the built-in ``torch.distributed`` gather.
+        constructor's) replaces the built-in sync, which checks the health
+        header on every rank before any payload moves
+        (``parallel/health.py``) and runs each collective under the watchdog.
+
+        ``on_error`` / ``on_missing`` / ``timeout`` default to the
+        constructor's ``sync_on_error`` / ``sync_on_missing`` /
+        ``sync_timeout``. A typed ``SyncError`` then propagates
+        (``"raise"``), or the metric keeps its local state and warns
+        (``"local"`` on rank zero, ``"warn"`` on every rank), and a paired
+        :meth:`unsync` is a no-op. ``on_missing="local"`` degrades a
+        missing-rank failure (a watchdog timeout, a divergent header) even
+        under ``on_error="raise"``.
         """
         if self._is_synced and should_sync:
             raise MetricsTPUUserError("The Metric has already been synced.")
+        on_error = _check_on_error(self.sync_on_error if on_error is None else on_error)
+        on_missing = _sync.check_on_missing(self.sync_on_missing if on_missing is None else on_missing)
         is_distributed = (
             distributed_available() if distributed_available is not None else self._distributed_available()
         )
         if not should_sync or not is_distributed:
             return
-        fn = dist_sync_fn or self.dist_sync_fn
         self._cache = self._state
-        if fn is not None:
-            synced = fn(dict(self._cache), self._reductions)
-        else:
-            synced = host_sync_state(self._cache, self._reductions, self.process_group)
+        self._sync_degraded = False
+        try:
+            synced = self._run_dist_sync(self._cache, timeout=timeout, fn=dist_sync_fn, on_missing=on_missing)
+        except SyncError as err:
+            self._handle_sync_failure(err, on_error, on_missing)
+            return
         self._restore(synced)
         self._is_synced = True
 
+    def _run_dist_sync(
+        self,
+        state: Dict[str, Any],
+        timeout: Optional[float] = None,
+        fn: Optional[Callable] = None,
+        on_missing: str = "raise",
+    ) -> Dict[str, Any]:
+        """The sync transport: ``fn`` (or ``self.dist_sync_fn``) when set,
+        else the built-in health-checked host sync with this metric's knobs."""
+        fn = fn or self.dist_sync_fn
+        if fn is not None:
+            return fn(dict(state), self._reductions)
+        return _sync.host_sync_state(
+            state,
+            self._reductions,
+            self.process_group,
+            update_count=self._update_count,
+            strict_update_count=self.sync_strict_update_count,
+            timeout=self.sync_timeout if timeout is None else timeout,
+            metric_name=type(self).__name__,
+            fused=self.sync_fused,
+            on_missing=on_missing,
+        )
+
+    def _handle_sync_failure(self, err: SyncError, on_error: str, on_missing: str = "raise") -> None:
+        """The ``on_error`` ladder of a failed sync; the local state was never
+        touched. Re-raises under ``"raise"``; otherwise marks the degradation
+        (so a paired :meth:`unsync` is a no-op) and warns, louder when this
+        rank's own state is the poisoned one."""
+        if on_missing == "local" and on_error == "raise" and is_missing_rank_error(err):
+            on_error = "local"
+        self._cache = None
+        if on_error == "raise":
+            raise err
+        self._sync_degraded = True
+        if isinstance(err, NonFiniteStateError) and self._local_state_poisoned():
+            # degradation promises a partial but correct value; this rank's
+            # own state is corrupt, so every rank that holds such state warns
+            warnings.warn(
+                f"Cross-process sync of {type(self).__name__} failed "
+                f"({type(err).__name__}: {err}): falling back to LOCAL-ONLY "
+                "state, and THIS process's own state is NaN/Inf-poisoned: "
+                "reported values are CORRUPT, not merely partial.",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return
+        msg = (
+            f"Cross-process sync of {type(self).__name__} failed "
+            f"({type(err).__name__}: {err}): falling back to LOCAL-ONLY "
+            "state; reported values cover this process's data only."
+        )
+        if on_error == "warn":
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        else:
+            rank_zero_warn(msg, RuntimeWarning)
+
     def _distributed_available(self) -> bool:
-        return distributed_available(self.process_group)
+        return _sync.distributed_available(self.process_group)
+
+    def _local_state_poisoned(self) -> bool:
+        """Is THIS rank's own state NaN/Inf-poisoned (``check_finite``)?"""
+        return NONFINITE_STATE in self._defaults and state_poisoned(self._state)
 
     def unsync(self, should_unsync: bool = True) -> None:
-        """Restore the local state saved by :meth:`sync`."""
+        """Restore the local state saved by :meth:`sync`. After a sync that
+        degraded to local state, a no-op."""
         if not should_unsync:
             return
         if not self._is_synced:
+            if self._sync_degraded:
+                self._sync_degraded = False
+                return
             raise MetricsTPUUserError("The Metric has already been un-synced.")
         if self._cache is None:
             raise MetricsTPUUserError("The internal cache should exist to unsync the Metric.")
@@ -444,6 +665,9 @@ class Metric(nn.Module):
         should_sync: bool = True,
         should_unsync: bool = True,
         distributed_available: Optional[Callable] = None,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
     ) -> "Metric._SyncContext":
         """Context manager: sync on enter, restore the local state on exit."""
         return Metric._SyncContext(
@@ -452,6 +676,9 @@ class Metric(nn.Module):
             dist_sync_fn=dist_sync_fn,
             should_sync=should_sync,
             distributed_available=distributed_available,
+            on_error=on_error,
+            on_missing=on_missing,
+            timeout=timeout,
         )
 
     # ------------------------------------------------------------------
@@ -545,11 +772,13 @@ class Metric(nn.Module):
         else:
             other, what = incoming, "state dict"
         self._validate_merge_schema(other, what)
+        self._group_detach_if_stray()
         self._restore(self.merge_states(self._state, other))
         self._computed = None
 
     def reset(self) -> None:
         """Reset every state to its default."""
+        self._group_detach_if_stray()
         self._update_called = False
         self._update_count = 0
         self._forward_cache = None
@@ -561,6 +790,7 @@ class Metric(nn.Module):
             for k, v in self._defaults.items()
         })
         self._is_synced = False
+        self._sync_degraded = False
         self._cache = None
 
     def clone(self) -> "Metric":
@@ -576,6 +806,7 @@ class Metric(nn.Module):
         (``ops/ranking.py``). Allowed before the first update, or to resize
         buffers that are still empty. Returns ``self``.
         """
+        self._group_detach_if_stray()
         for name, default in self._defaults.items():
             live = getattr(self, name)
             if isinstance(default, list):
@@ -595,6 +826,105 @@ class Metric(nn.Module):
             self._defaults[name] = CatBuffer(capacity)
             setattr(self, name, CatBuffer(capacity))
         return self
+
+    def enable_check_finite(self) -> "Metric":
+        """Turn on NaN/Inf screening; returns ``self``.
+
+        Registers the hidden ``_nonfinite`` poison-flag state (an int32
+        scalar, ``dist_reduce_fx="sum"``) and screens every later ``update``
+        at O(batch) cost, with no host read: the update's float inputs, the
+        tensor states and the list entries it appended latch the flag
+        (CatBuffer bodies are scanned once at the sync and compute boundary
+        instead). A poisoned rank then fails a sync on every rank with
+        :class:`~metrics_tpu_torch.utils.exceptions.NonFiniteStateError`
+        (the health header carries the verdict), and a single process fails
+        its ``compute()``. Must be called before the first ``update``.
+        """
+        if NONFINITE_STATE not in self._defaults:
+            if self._update_called:
+                raise MetricsTPUUserError(
+                    "enable_check_finite() must be called before the first "
+                    "update(): the poison flag must cover the whole accumulation."
+                )
+            self._group_detach_if_stray()  # a schema change: leave the group
+            self.add_state(NONFINITE_STATE, torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
+        self.check_finite = True
+        return self
+
+    # ------------------------------------------------------------------
+    # compute-group protocol (MetricCollection state/update dedup)
+    # ------------------------------------------------------------------
+
+    def state_fingerprint(self) -> Tuple:
+        """The declared state schema: every state's name, kind (tensor / list
+        / CatBuffer), dtype, shape, reduction and reset default's bytes. Equal
+        fingerprints are the first condition for two collection members to
+        share state; an equal :meth:`update_identity` is the second."""
+        parts: List[Tuple] = []
+        for name in sorted(self._defaults):
+            default = self._defaults[name]
+            fx = self._reductions[name]
+            # callables compare by identity: two functions may reduce
+            # differently even when their names collide
+            fx_tag: Any = ("callable", id(fx)) if callable(fx) and not isinstance(fx, str) else fx
+            if isinstance(default, list):
+                parts.append((name, "list", fx_tag))
+            elif isinstance(default, CatBuffer):
+                item = None if default.buffer is None else (
+                    str(default.buffer.dtype), tuple(default.buffer.shape[1:]))
+                parts.append((name, "catbuf", default.capacity, item, fx_tag))
+            else:
+                host = default.detach().cpu()
+                parts.append((name, "leaf", str(host.dtype), tuple(host.shape), host.numpy().tobytes(), fx_tag))
+        return tuple(parts)
+
+    def update_identity(self) -> Optional[Tuple]:
+        """A hashable key naming what this metric's ``update`` does to its
+        state, or ``None`` (the default): no claim, never shares updates.
+
+        Families whose members run the same ``update`` with the same
+        configuration declare one (the stat-score family, the curve family).
+        Members of a ``MetricCollection`` with equal keys and equal
+        :meth:`state_fingerprint` form a compute group: one update, one copy
+        of state. A family whose update writes instance attributes lists them
+        in ``_group_shared_attrs``.
+        """
+        return None
+
+    def _effective_update_identity(self) -> Optional[Tuple]:
+        """The identity key, or ``None`` for a subclass that overrides
+        ``update`` without declaring its own key (the inherited key speaks of
+        the base class's update)."""
+        cls = type(self)
+        ident_cls = next(c for c in cls.__mro__ if "update_identity" in c.__dict__)
+        if ident_cls is Metric:
+            return None
+        upd_cls = next((c for c in cls.__mro__ if "update" in c.__dict__), None)
+        if upd_cls is not None and cls.__mro__.index(upd_cls) < cls.__mro__.index(ident_cls):
+            return None
+        return self.update_identity()
+
+    def _group_detach_if_stray(self) -> None:
+        """Copy-on-write detach from a compute group on an out-of-group state
+        mutation (a direct ``update``, ``forward``, ``reset``, load, cast or
+        state assignment on one member): the member takes a clone of every
+        state leaf and leaves the group, so its siblings never see it.
+        Operations the collection dispatches to the group pass through.
+
+        The clone is of every leaf, not only of the containers as in the JAX
+        package (whose arrays are immutable): here ``forward`` merges into
+        the accumulation's CatBuffers in place."""
+        group = self.__dict__.get("_compute_group")
+        if group is None or group.dispatching:
+            return
+        group.members[:] = [m for m in group.members if m is not self]
+        object.__setattr__(self, "_compute_group", None)
+        for k, v in self._state.items():
+            nn.Module.__setattr__(self, k, _fresh_state_value(v))
+        if len(group.members) < 2:
+            for m in group.members:
+                object.__setattr__(m, "_compute_group", None)
+            group.members.clear()
 
     # ------------------------------------------------------------------
     # serialization
@@ -636,6 +966,7 @@ class Metric(nn.Module):
         unexpected_keys: List[str],
         error_msgs: List[str],
     ) -> None:
+        self._group_detach_if_stray()
         for name in self._defaults:
             key = prefix + name
             if key in state_dict:
@@ -850,13 +1181,24 @@ def _wrap_update(update: Callable) -> Callable:
                 "The Metric shouldn't be synced when performing ``update``. "
                 "HINT: Did you forget to call ``unsync``?"
             )
+        # a direct update on one member of a compute group leaves the group
+        # before it mutates anything shared
+        self._group_detach_if_stray()
         self._computed = None
         self._update_called = True
         self._update_count += 1
+        screening = self.check_finite and NONFINITE_STATE in self._defaults
+        if screening:
+            # the screen covers only the list entries this update appends
+            prev_list_lens = {name: len(v) for name, v in self._state.items() if isinstance(v, list)}
         with torch.no_grad():
             out = update(self, *args, **kwargs)
-        if self._dtype is not None:
-            self._restore(_cast_floating(self._state, self._dtype))
+            if self._dtype is not None:
+                self._restore(_cast_floating(self._state, self._dtype))
+            if screening:
+                # latch, never clear; fx="sum" carries the flag through merges
+                flag = _update_nonfinite_flag(self._state, (args, kwargs), prev_list_lens, self._device)
+                self._restore({NONFINITE_STATE: torch.maximum(getattr(self, NONFINITE_STATE), flag)})
         _raise_on_catbuffer_overflow(self._state, type(self).__name__)
         return out
 
@@ -877,7 +1219,25 @@ def _wrap_compute(compute: Callable) -> Callable:
         if self._computed is not None:
             return self._computed
         should = self._to_sync and not self._is_synced
+        screening = self.check_finite and NONFINITE_STATE in self._defaults
+        if screening and not self._distributed_available() and state_poisoned(self._state):
+            # one process: refuse here (in a world, the sync header raises on
+            # every rank together instead; raising before it would strand
+            # the healthy ranks in their gather)
+            raise NonFiniteStateError(
+                f"{type(self).__name__} accumulated non-finite (NaN/Inf) state values "
+                "(check_finite screening); compute() refused rather than returning a "
+                "silently-corrupt result."
+            )
         with self.sync_context(dist_sync_fn=self.dist_sync_fn, should_sync=should, should_unsync=should):
+            if screening and self._is_synced and int(getattr(self, NONFINITE_STATE)) > 0:
+                # a custom dist_sync_fn runs no header, but the flag rides its
+                # transport (fx="sum"): every rank sees the same sum and raises
+                raise NonFiniteStateError(
+                    f"{type(self).__name__}: a participating process accumulated non-finite "
+                    "(NaN/Inf) state values (check_finite screening; poison flag gathered "
+                    "through the sync transport)."
+                )
             self._computed = compute(self, *args, **kwargs)
         return self._computed
 

@@ -3,24 +3,40 @@
 Counterpart of the host path of ``metrics_tpu/parallel/sync.py``: each state
 leaf is gathered from every rank and reduced by its declared
 ``dist_reduce_fx``. Uneven leading dims are handled by gathering the shapes,
-padding to the largest, gathering and trimming. The backend is the process
-group's own: gloo for CPU tensors, NCCL for CUDA tensors (a tensor is gathered
-on the device it lives on). A world of one rank is a no-op.
+padding to the largest, gathering and trimming. A world of one rank is a
+no-op.
 
-A fixed-capacity ``CatBuffer`` state gathers its (count, overflow flag)
-words, then its valid rows (``host_sync_leaf``).
+A whole state syncs through :func:`host_sync_state`: one health-header
+gather that every rank verifies (``parallel/health.py``), then the bucketed
+payload (``parallel/bucketing.py``), or the per-leaf path. Every collective
+goes through one seam, :func:`_all_gather`, under the sync watchdog, and
+crosses on :func:`_collective_device`: the card under NCCL, the host under
+gloo, whatever device the state lives on.
 
-The JAX package's health header, bucketed payload, quorum and tiering layers
-are not ported yet; every leaf costs its own collectives here.
+The JAX package's quorum, overlapped and tiered layers are not ported yet.
 """
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 import torch.distributed as dist
 
-from metrics_tpu_torch.utils.exceptions import StateDivergenceError, SyncError
+from metrics_tpu_torch.parallel.health import (
+    build_health_word,
+    call_with_sync_watchdog,
+    channel_is_suspect,
+    verify_health_words,
+)
+from metrics_tpu_torch.utils.exceptions import (
+    MetricsTPUUserError,
+    StateDivergenceError,
+    SyncError,
+    SyncTimeoutError,
+)
 
 ReduceFx = Union[str, Callable, None]
+
+#: Accepted ``on_missing`` policies; ``"quorum"`` waits for the resilience slice.
+ON_MISSING_MODES = ("raise", "local")
 
 _EPS = 1e-6
 
@@ -61,90 +77,134 @@ def class_reduce(
     raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
 
 
+def _world_size(group: Optional[Any] = None) -> int:
+    return dist.get_world_size(group)
+
+
 def _all_gather(x: torch.Tensor, group: Optional[Any]) -> List[torch.Tensor]:
-    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    """The bare collective: one tensor per rank, on ``x``'s device. Kept as
+    its own seam, where the tests plug in a world of threads and where
+    ``chip_smoke.py`` counts collectives."""
+    out = [torch.empty_like(x) for _ in range(_world_size(group))]
     dist.all_gather(out, x.contiguous(), group=group)
     return out
 
 
-def gather_all_arrays(result: torch.Tensor, group: Optional[Any] = None) -> List[torch.Tensor]:
+def _gather(x: torch.Tensor, group: Optional[Any], timeout: Optional[float] = None) -> List[torch.Tensor]:
+    """One watchdog-guarded collective. ``x`` crosses it on
+    :func:`_collective_device` (the card under NCCL, the host under gloo)
+    and each rank's piece comes back to ``x``'s device."""
+    device = x.device
+    moved = x.to(_collective_device(group))
+    pieces = call_with_sync_watchdog(lambda: _all_gather(moved, group), timeout=timeout, what="all_gather")
+    return [p.to(device) for p in pieces]
+
+
+def gather_all_arrays(
+    result: torch.Tensor,
+    group: Optional[Any] = None,
+    timeout: Optional[float] = None,
+    all_shapes: Optional[torch.Tensor] = None,
+) -> List[torch.Tensor]:
     """Gather one tensor from every rank; supports uneven shapes.
 
     Returns one tensor per rank, each trimmed back to that rank's true shape.
+    ``all_shapes`` (``[world, ndim]``), when the caller knows every rank's
+    shape already, saves the shape gather.
     """
     if not distributed_available(group):
         return [result]
     if result.ndim == 0:
-        return [p.reshape(()) for p in _all_gather(result.reshape(1), group)]
-    local_shape = torch.tensor(result.shape, dtype=torch.long, device=result.device)
-    all_shapes = torch.stack(_all_gather(local_shape, group)).cpu()  # [world, ndim]
+        return [p.reshape(()) for p in _gather(result.reshape(1), group, timeout)]
+    if all_shapes is None:
+        local_shape = torch.tensor(result.shape, dtype=torch.long, device=result.device)
+        all_shapes = torch.stack(_gather(local_shape, group, timeout)).cpu()  # [world, ndim]
     if bool((all_shapes == all_shapes[0]).all()):
-        return _all_gather(result, group)
+        return _gather(result, group, timeout)
     max_shape = all_shapes.amax(dim=0)
     pad = []
     for size, most in reversed(list(zip(result.shape, max_shape.tolist()))):
         pad += [0, most - size]
     padded = torch.nn.functional.pad(result, pad)
-    gathered = _all_gather(padded, group)
+    gathered = _gather(padded, group, timeout)
     return [g[tuple(slice(0, d) for d in shape.tolist())] for g, shape in zip(gathered, all_shapes)]
 
 
-def host_sync_leaf(value: Any, fx: ReduceFx, group: Optional[Any] = None) -> Any:
+def _sum_keep_dtype(gathered: torch.Tensor) -> torch.Tensor:
+    """The sum over ranks in the state's own dtype (``torch.sum`` would
+    widen an int32 state to int64, as the JAX package does not)."""
+    if gathered.dtype == torch.bool:
+        return torch.sum(gathered, dim=0)
+    return torch.sum(gathered, dim=0, dtype=gathered.dtype)
+
+
+def host_sync_leaf(
+    value: Any,
+    fx: ReduceFx,
+    group: Optional[Any] = None,
+    precheck: bool = True,
+    timeout: Optional[float] = None,
+) -> Any:
     """Sync one state leaf across processes.
 
-    A list state is concatenated locally and gathered whatever its ``fx``.
-    Every rank first gathers the element counts, so a rank with an empty list
-    still takes part in a collective, and if any rank is empty every rank
-    raises :class:`StateDivergenceError` together.
+    A list state is concatenated locally and gathered whatever its ``fx``. A
+    :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` state's valid rows
+    move through the uneven-shape gather into a ``CatBuffer(world *
+    capacity)`` in rank order.
 
-    A :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` state gathers one
-    (count, overflow flag) word per rank first: an empty rank makes every
-    rank raise :class:`StateDivergenceError`, an overflowed one
-    :class:`SyncError`. Then the valid rows move through the uneven-shape
-    gather, into a ``CatBuffer(world * capacity)`` in rank order.
+    ``precheck=True`` (standalone use) first gathers the leaf's own
+    participation word, so an empty list or CatBuffer makes every rank raise
+    :class:`StateDivergenceError` and an overflowed CatBuffer :class:`SyncError`
+    together. :func:`host_sync_state` verifies the whole state with the health
+    header first and passes ``precheck=False``, which also skips the shape
+    gather of a reduce leaf (its full shape is in the verified schema).
     """
     from metrics_tpu_torch.core.cat_buffer import CatBuffer
 
     if isinstance(value, CatBuffer):
         if not distributed_available(group):
             return value.copy()
-        word = torch.tensor([len(value), int(value.overflowed)], device=_collective_device(group))
-        words = torch.stack(_all_gather(word, group)).cpu()
-        if bool((words[:, 0] == 0).any()):
-            raise StateDivergenceError(
-                "Cannot sync a CatBuffer state across processes: at least one process "
-                "has an empty state (no update() before sync()). All processes raised."
-            )
-        if bool((words[:, 1] != 0).any()):
-            raise SyncError(
-                "Cannot sync a CatBuffer state across processes: at least one process "
-                "overflowed its capacity (rows were overwritten inside jit). "
-                "All processes raised. Use a larger `with_capacity(...)`."
-            )
-        merged = CatBuffer(dist.get_world_size(group) * value.capacity)
-        for rows in gather_all_arrays(value.values(), group):
+        if precheck:
+            word = torch.tensor([len(value), int(value.overflowed)])
+            words = torch.stack(_gather(word, group, timeout))
+            if bool((words[:, 0] == 0).any()):
+                raise StateDivergenceError(
+                    "Cannot sync a CatBuffer state across processes: at least one process "
+                    "has an empty state (no update() before sync()). All processes raised."
+                )
+            if bool((words[:, 1] != 0).any()):
+                raise SyncError(
+                    "Cannot sync a CatBuffer state across processes: at least one process "
+                    "overflowed its capacity (rows were overwritten inside jit). "
+                    "All processes raised. Use a larger `with_capacity(...)`."
+                )
+        merged = CatBuffer(_world_size(group) * value.capacity)
+        for rows in gather_all_arrays(value.values(), group, timeout):
             merged.append(rows)
         return merged
     if isinstance(value, (list, tuple)):
         vals = [torch.cat([v.unsqueeze(0) if v.ndim == 0 else v for v in value])] if value else []
         if not distributed_available(group):
             return vals
-        device = vals[0].device if vals else _collective_device(group)
-        counts = torch.stack(_all_gather(torch.tensor([len(vals)], device=device), group))
-        if bool((counts == 0).any()):
-            raise StateDivergenceError(
-                "Cannot sync a list-state across processes: at least one process has "
-                "an empty state (no update() before sync()). All processes raised."
-            )
-        return gather_all_arrays(vals[0], group)
+        if precheck:
+            counts = torch.stack(_gather(torch.tensor([len(vals)]), group, timeout))
+            if bool((counts == 0).any()):
+                raise StateDivergenceError(
+                    "Cannot sync a list-state across processes: at least one process has "
+                    "an empty state (no update() before sync()). All processes raised."
+                )
+        return gather_all_arrays(vals[0], group, timeout)
     if not distributed_available(group):
         return value
-    pieces = gather_all_arrays(value, group)
+    known_shapes = None
+    if not precheck and fx not in ("cat", None) and value.ndim:
+        known_shapes = torch.tensor(value.shape).expand(_world_size(group), value.ndim)
+    pieces = gather_all_arrays(value, group, timeout, all_shapes=known_shapes)
     if fx == "cat" or fx is None:
         return torch.cat([p.unsqueeze(0) if p.ndim == 0 else p for p in pieces])
     gathered = torch.stack(pieces)
     if fx == "sum":
-        return torch.sum(gathered, dim=0)
+        return _sum_keep_dtype(gathered)
     if fx == "mean":
         return torch.mean(gathered if gathered.is_floating_point() else gathered.to(torch.float32), dim=0)
     if fx == "max":
@@ -164,10 +224,74 @@ def _collective_device(group: Optional[Any]) -> torch.device:
     return torch.device("cpu")
 
 
+def check_on_missing(on_missing: str) -> str:
+    """Validate an ``on_missing`` policy: ``"raise"`` or ``"local"``."""
+    if on_missing == "quorum":
+        raise NotImplementedError(
+            "on_missing='quorum' (a sync that shrinks to the surviving ranks) comes "
+            "with the port of parallel/resilience.py, a later slice (ROADMAP.md, "
+            "the sync stack's remaining items); use 'raise' or 'local'."
+        )
+    if on_missing not in ON_MISSING_MODES:
+        raise MetricsTPUUserError(f"`on_missing` must be one of {ON_MISSING_MODES}, got {on_missing!r}")
+    return on_missing
+
+
 def host_sync_state(
-    state: Dict[str, Any], reductions: Dict[str, ReduceFx], group: Optional[Any] = None
+    state: Dict[str, Any],
+    reductions: Dict[str, ReduceFx],
+    group: Optional[Any] = None,
+    update_count: int = 0,
+    check_health: bool = True,
+    strict_update_count: bool = False,
+    timeout: Optional[float] = None,
+    metric_name: str = "metric",
+    fused: Optional[bool] = None,
+    on_missing: str = "raise",
 ) -> Dict[str, Any]:
-    """Sync a whole metric-state dict across processes, leaf by leaf in the
-    dict's order (the same on every rank, since every rank declares the same
-    states)."""
-    return {name: host_sync_leaf(value, reductions.get(name), group) for name, value in state.items()}
+    """Sync a whole metric-state dict across processes.
+
+    With ``check_health`` (the default), every rank first contributes one
+    fixed-width health word in a single gather (``parallel/health.py``):
+    empty, overflowed, schema-divergent, non-finite and (strict) update-count
+    skew all raise the same typed :class:`SyncError` on every rank before
+    any payload moves. The payload then takes the bucketed path
+    (``parallel/bucketing.py``: one collective per dtype/reduction class)
+    unless ``fused`` is ``False`` (``None`` reads ``METRICS_TPU_FUSED_SYNC``),
+    else the per-leaf path without its prechecks. ``check_health=False``
+    takes the per-leaf path with them. Every collective runs under the
+    watchdog (``timeout``, see :func:`call_with_sync_watchdog`).
+
+    Once a watchdog fired in this process, syncs refuse with
+    :class:`SyncTimeoutError` before any collective, until
+    :func:`~metrics_tpu_torch.parallel.health.reset_channel_health`.
+    ``on_missing`` is the caller's policy (``"raise"`` or ``"local"``); this
+    function raises either way and ``Metric.sync`` degrades.
+    """
+    check_on_missing(on_missing)
+    if not distributed_available(group):
+        return {name: host_sync_leaf(value, reductions.get(name), group) for name, value in state.items()}
+    if channel_is_suspect():
+        raise SyncTimeoutError(
+            f"host sync of {metric_name} refused: an earlier collective timed out, so "
+            "cross-process collective ordering can no longer be trusted (a new gather "
+            "could pair with a peer's stale one). Recover with on_error='local', or "
+            "re-establish the process group and call "
+            "metrics_tpu_torch.parallel.health.reset_channel_health()."
+        )
+    precheck = True
+    if check_health:
+        from metrics_tpu_torch.parallel import bucketing
+
+        word = torch.from_numpy(build_health_word(state, reductions, update_count, world=_world_size(group)))
+        words = torch.stack(_gather(word, group, timeout)).numpy()
+        verify_health_words(
+            words, state, reductions, strict_update_count=strict_update_count, metric_name=metric_name
+        )
+        if bucketing.fused_sync_enabled() if fused is None else fused:
+            return bucketing.host_sync_state_bucketed(state, reductions, words=words, group=group, timeout=timeout)
+        precheck = False
+    return {
+        name: host_sync_leaf(value, reductions.get(name), group, precheck=precheck, timeout=timeout)
+        for name, value in state.items()
+    }

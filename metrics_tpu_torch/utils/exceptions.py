@@ -19,9 +19,30 @@ class SyncError(RuntimeError):
     """
 
 
+class SyncTimeoutError(SyncError):
+    """A host collective did not complete within the watchdog timeout.
+
+    The usual cause is a dead or stalled peer process. After this is raised
+    the process's collective ordering can no longer be trusted: recover via
+    ``on_error="local"`` degradation or by restarting the process group.
+    """
+
+
 class StateDivergenceError(SyncError):
-    """Metric state diverged across processes before a sync (e.g. one rank
-    holds an empty list state)."""
+    """Metric state diverged across processes before a sync.
+
+    Covers the divergence classes the health word detects: a rank with an
+    empty cat-state, mismatched state schemas (names/dtypes/item shapes),
+    and update-count skew under strict checking.
+    """
+
+
+class NonFiniteStateError(SyncError):
+    """A rank's accumulated state was poisoned by NaN/Inf values.
+
+    Raised when ``check_finite`` screening is enabled and any participating
+    rank's poison flag is set (or locally, single-process, at compute time).
+    """
 
 
 class StateSchemaError(MetricsTPUUserError):

@@ -3,7 +3,8 @@
 One spawn of two processes serves every test in this file: each rank drives
 its own, uneven share of the batches, then reports what its synced
 ``compute()`` returned. The synced values must equal one process that saw all
-the batches.
+the batches. Ranks whose metrics disagree on their state schema raise the
+same ``StateDivergenceError`` on both ranks, from the health header.
 """
 import os
 import socket
@@ -15,6 +16,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 import metrics_tpu_torch as port
+import metrics_tpu_torch.parallel.sync as sync_mod
 from metrics_tpu_torch.parallel.sync import gather_all_arrays, host_sync_leaf
 from metrics_tpu_torch.utils.exceptions import StateDivergenceError, SyncError
 
@@ -37,6 +39,19 @@ def _flagship():
         "acc": port.Accuracy(num_classes=C, device="cpu"),
         "stats": port.StatScores(reduce="macro", num_classes=C, device="cpu"),
         "samples": port.StatScores(reduce="samples", num_classes=C, device="cpu"),
+    })
+
+
+def _report():
+    k = dict(num_classes=C, device="cpu")
+    return port.MetricCollection({
+        "prec": port.Precision(average="macro", **k),
+        "rec": port.Recall(average="macro", **k),
+        "f1": port.F1(average="macro", **k),
+        "spec": port.Specificity(average="macro", **k),
+        "confmat": port.ConfusionMatrix(C, device="cpu"),
+        "mcc": port.MatthewsCorrcoef(C, device="cpu"),
+        "hamming": port.HammingDistance(device="cpu"),
     })
 
 
@@ -91,6 +106,32 @@ def _worker(rank, world, port_no, out_dir):
                     pass
                 result[case] = "no error"
             except SyncError as err:
+                result[case] = type(err).__name__
+
+        # the grouped report collection: compute() syncs it once, through
+        # one header and one bucketed plan
+        report = _report()
+        for p, t in _batches(rank):
+            report(p, t)
+        result["report_groups"] = report.compute_group_keys
+        calls = []
+        raw = sync_mod._all_gather
+        sync_mod._all_gather = lambda x, group: calls.append(x.numel()) or raw(x, group)
+        try:
+            result["report"] = report.compute()
+        finally:
+            sync_mod._all_gather = raw
+        result["report_collectives"] = len(calls)
+
+        # schema-divergent ranks: num_classes 10 against 12, and a scalar
+        # (micro) state against a [C] (macro) one
+        for case, (reduce, c) in {"num_classes": ("macro", C + 2 * rank), "state_rank": (("micro", "macro")[rank], C)}.items():
+            m = port.StatScores(reduce=reduce, num_classes=c, device="cpu")
+            m.update(torch.rand(8, c), torch.randint(0, c, (8,)))
+            try:
+                m.compute()
+                result[case] = "no error"
+            except Exception as err:  # noqa: BLE001 - the class is the result
                 result[case] = type(err).__name__
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -157,3 +198,25 @@ def test_with_capacity_auroc_syncs_uneven_rows(two_rank_results):
 def test_empty_or_overflowed_catbuffer_raises_on_every_rank(two_rank_results):
     assert [r["empty"] for r in two_rank_results] == ["StateDivergenceError"] * 2
     assert [r["overflowed"] for r in two_rank_results] == ["SyncError"] * 2
+
+
+def test_grouped_report_collection_syncs_once_through_the_fused_path(two_rank_results):
+    single = _report()
+    for rank in sorted(RANK_BATCHES):
+        for p, t in _batches(rank):
+            single.update(p, t)
+    want = single.compute()
+    for rank, result in enumerate(two_rank_results):
+        assert result["report_groups"] == [["f1", "prec", "rec", "spec"]]
+        # one header, one int64 sum bucket, one float32 sum bucket (hamming)
+        assert result["report_collectives"] == 3, rank
+        got = result["report"]
+        assert sorted(got) == sorted(want)
+        assert torch.equal(got["confmat"], want["confmat"]), rank
+        for key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6)
+
+
+def test_schema_divergent_ranks_raise_state_divergence_on_every_rank(two_rank_results):
+    for case in ("num_classes", "state_rank"):
+        assert [r[case] for r in two_rank_results] == ["StateDivergenceError"] * 2, case
