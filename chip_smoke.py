@@ -36,17 +36,29 @@
    PrecisionRecallCurve on 2^20 scores with large tie groups) in both modes;
    every state is held against the CPU run, and the two modes against each
    other;
-9. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
+9. drives the regression collection at NYU Depth v2 test size (MSE, RMSE,
+   MAE, MSLE, MAPE, SMAPE, R2Score, ExplainedVariance, PearsonCorrcoef,
+   TweedieDevianceScore(power=2)) for 16 ``forward`` steps of 2,457,600
+   flattened depths, held against the CPU run within bounds derived from
+   this run's data (``_regression_bounds``), counts exact;
+10. drives SpearmanCorrcoef and CosineSimilarity(mean) at sentence-embedding
+   eval size (24 ``update`` steps of 2048 pairs of 768-wide embeddings, and
+   their cosines against STS-B-style gold scores) in list mode and with
+   ``with_capacity(49152)``: the two modes equal bit for bit, both against
+   the CPU run; times ``compute()``, counts its host reads, its peak memory;
+11. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
    gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
-   report batches and of the curves batches (AUROC + AveragePrecision with
-   ``with_capacity``), the collections sync through one health header and one
-   bucketed plan, and the synced values on both ranks are held against one
-   process on the card over all batches; counts the collectives of the fused
+   report batches, of the curves batches (AUROC + AveragePrecision with
+   ``with_capacity``) and of the regression batches (PearsonCorrcoef's
+   ``dist_reduce_fx=None`` states gather to ``[2]`` and fold), the
+   collections sync through one health header and one bucketed plan, and the
+   synced values on both ranks are held against one process on the card over
+   all batches; counts the collectives of the fused
    sync against the per-leaf sync and times both; then drives three
    divergence cases on the two ranks (``num_classes`` 1000 against 1001, the
    same with ``on_error="local"``/``"warn"``, one NaN under
    ``enable_check_finite()``), which must raise, degrade and raise on both;
-10. profiles a step of each collection (the report collection with and
+12. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -102,6 +114,28 @@ CURVE_ATOL = 3e-6
 CE_ATOL = 2e-6
 # sync phase: two ranks on the one card, each with half of the batches
 SYNC_WORLD = 2
+# regression phase: NYU Depth v2's labelled test split (654 images of
+# 480x640) cut to 128 images, 16 forward steps of 8 flattened depth maps
+DEPTH_HW, DEPTH_BATCH, REG_STEPS = (480, 640), 8, 16
+DEPTH_PIXELS = DEPTH_BATCH * DEPTH_HW[0] * DEPTH_HW[1]  # 2,457,600 a step
+# float32 sums, card vs CPU: a step sums 2,457,600 terms (in a tree on both
+# sides: log2(2,457,600) = 21.2 roundings of 2**-24, of the sum of the terms'
+# magnitudes), then 16 steps add up in the state (16 more roundings); the two
+# sides may err in opposite directions: twice that, 4.4e-6 of the sum
+REG_SUM_RTOL = 2 * (float(np.log2(DEPTH_PIXELS)) + REG_STEPS) * 2.0 ** -24
+# regression-cat phase: sentence-embedding evaluation at BERT-base width,
+# 24 update steps of 2048 pairs (49,152 pairs; STS-B-style gold scores)
+EMBED_DIM, CAT_STEPS, CAT_CAPACITY = 768, 24, 24 * BATCH
+# cosine mean, card vs CPU: each row's dot product and norms are float32 sums
+# of 768 terms (log2(768) = 9.6 roundings each side; the dot's terms are of
+# mixed sign, Σ|xy| / |Σxy| about 2 at a cosine of 0.6), then a mean over
+# 49,152 rows (15.6 roundings): 2 * (2 * 9.6 + 9.6 + 15.6) * 2**-24 = 5.3e-6
+COSINE_ATOL = 2 * (2 * 9.6 + 9.6 + 15.6) * 2.0 ** -24
+# Spearman, card vs CPU: the ranks are exact on both sides (one stable sort of
+# the same data); the moments of the ranks are float32 means over 49,152 rows
+# (15.6 roundings), the covariance's terms of mixed sign (Σ|ab| / |Σab| below
+# 3 at rho of 0.5), and rho = cov / (sd * sd): 2 * (3 + 1) * 15.6 * 2**-24
+SPEARMAN_ATOL = 2 * (3 + 1) * 15.6 * 2.0 ** -24
 
 
 def _phase(name: str) -> None:
@@ -596,6 +630,240 @@ def _curves_phase(smi, device):
     return results
 
 
+def _depth_data():
+    """The regression phase's 16 batches of flattened depth maps: targets
+    in 0.5-10 m, preds the targets times exp(N(0, 0.1)), both strictly
+    positive (for the log error and the Gamma deviance)."""
+    rng = np.random.RandomState(4)
+    target = rng.uniform(0.5, 10.0, (REG_STEPS, DEPTH_PIXELS)).astype(np.float32)
+    preds = (target * np.exp(rng.normal(0.0, 0.1, (REG_STEPS, DEPTH_PIXELS)))).astype(np.float32)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+def _regression_collection(dev):
+    from metrics_tpu_torch import (
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanAbsolutePercentageError,
+        MeanSquaredError,
+        MeanSquaredLogError,
+        MetricCollection,
+        PearsonCorrcoef,
+        R2Score,
+        SymmetricMeanAbsolutePercentageError,
+        TweedieDevianceScore,
+    )
+
+    return MetricCollection({
+        "mse": MeanSquaredError(device=dev),
+        "rmse": MeanSquaredError(squared=False, device=dev),
+        "mae": MeanAbsoluteError(device=dev),
+        "msle": MeanSquaredLogError(device=dev),
+        "mape": MeanAbsolutePercentageError(device=dev),
+        "smape": SymmetricMeanAbsolutePercentageError(device=dev),
+        "r2": R2Score(device=dev),
+        "ev": ExplainedVariance(device=dev),
+        "pearson": PearsonCorrcoef(device=dev),
+        "tweedie": TweedieDevianceScore(power=2.0, device=dev),
+    })
+
+
+# the count states of the regression collection: equal, not close
+REG_COUNTS = ("total", "num_observations", "n_obs", "n_total")
+
+
+def _regression_bounds(preds, target):
+    """Relative bounds of each float state and each value of the regression
+    collection, card vs CPU, from REG_SUM_RTOL and float64 moments of this
+    run's data (one step at a time on the host).
+
+    - MSE, RMSE, MAE, MAPE, SMAPE and R2's sums: their elementwise ops are
+      correctly rounded float32 on both sides, so only the sums differ.
+    - ExplainedVariance's Σ(y - p) has terms of both signs: REG_SUM_RTOL
+      times Σ|y - p| / |Σ(y - p)|.
+    - MSLE: each log1p is within 1 ulp of exact on either side (values up
+      to log1p(10) = 2.4, ulp 2**-22), so d = log1p(p) - log1p(y) moves by
+      up to 4 * 2**-22 and d² by 2|d| times that: relative to mean d²,
+      8 * 2**-22 * mean|d| / mean d².
+    - Gamma deviance 2 (log(p/y) + y/p - 1): the log moves by up to 2 ulps
+      of |log(p/y)| (2**-22 of it), doubled: 2**-21 * mean|log(p/y)| /
+      mean deviance, plus an ulp of the result (2**-23).
+    - R² and explained variance are 1 - a/b, b a difference of Σy² and
+      (Σy)²/N, kappa = mean y² / var y times smaller than either: the value
+      moves by |1 - v| * (1 + kappa) * REG_SUM_RTOL.
+    - Pearson r = c / sqrt(vx vy), c, vx, vy streamed sums of products of
+      one dominant sign: 3 * REG_SUM_RTOL of r."""
+    acc = dict(abs_e=0.0, e=0.0, abs_d=0.0, d2=0.0, abs_log=0.0, dev=0.0, y=0.0, y2=0.0)
+    for p, y in zip(preds.numpy(), target.numpy()):
+        p, y = p.astype(np.float64), y.astype(np.float64)
+        e, d, lr = y - p, np.log1p(p) - np.log1p(y), np.log(p / y)
+        acc["abs_e"] += np.abs(e).sum()
+        acc["e"] += e.sum()
+        acc["abs_d"] += np.abs(d).sum()
+        acc["d2"] += (d * d).sum()
+        acc["abs_log"] += np.abs(lr).sum()
+        acc["dev"] += (2 * (lr + y / p - 1)).sum()
+        acc["y"] += y.sum()
+        acc["y2"] += (y * y).sum()
+    n = preds.numel()
+    kappa = (acc["y2"] / n) / (acc["y2"] / n - (acc["y"] / n) ** 2)
+    state = {name: REG_SUM_RTOL for name in (
+        "mse.sum_squared_error", "rmse.sum_squared_error", "mae.sum_abs_error", "mape.sum_abs_per_error",
+        "smape.sum_abs_per_error", "r2.sum_squared_error", "r2.sum_error", "r2.residual", "ev.sum_squared_error",
+        "ev.sum_target", "ev.sum_squared_target", "pearson.mean_x", "pearson.mean_y")}
+    state.update({f"pearson.{k}": 2 * REG_SUM_RTOL for k in ("var_x", "var_y", "corr_xy")})
+    state["ev.sum_error"] = REG_SUM_RTOL * acc["abs_e"] / abs(acc["e"])
+    state["msle.sum_squared_log_error"] = REG_SUM_RTOL + 8 * 2.0 ** -22 * acc["abs_d"] / acc["d2"]
+    state["tweedie.sum_deviance_score"] = REG_SUM_RTOL + 2.0 ** -21 * acc["abs_log"] / acc["dev"] + 2.0 ** -23
+    values = {k: state[f"{k}.{s}"] for k, s in (
+        ("mse", "sum_squared_error"), ("rmse", "sum_squared_error"), ("mae", "sum_abs_error"),
+        ("msle", "sum_squared_log_error"), ("mape", "sum_abs_per_error"), ("smape", "sum_abs_per_error"),
+        ("tweedie", "sum_deviance_score"))}
+    return state, values, kappa
+
+
+def _check_regression(name, got, want, value_rtol, kappa):
+    """One regression value against another within its bound (see
+    ``_regression_bounds``); returns the absolute difference."""
+    got, want = float(got), float(want)
+    assert np.isfinite(got), f"{name}: {got}"
+    if name in ("r2", "ev"):
+        bound = abs(1 - want) * (1 + kappa) * REG_SUM_RTOL + 2.0 ** -23
+    elif name == "pearson":
+        bound = 3 * REG_SUM_RTOL * abs(want) + 2.0 ** -23
+    else:
+        bound = value_rtol[name] * abs(want) + 2.0 ** -23 * abs(want)
+    err = abs(got - want)
+    assert err <= bound, f"{name}: {got} vs {want}, |diff| {err} > bound {bound}"
+    return err
+
+
+def _check_regression_states(mc_a, mc_b, state_rtol, what):
+    """Counts equal; every float state within its relative bound."""
+    for key, m in mc_a.items():
+        for name, v in m._state.items():
+            w = mc_b[key]._state[name]
+            v, w = v.cpu(), w.cpu()
+            if name in REG_COUNTS:
+                assert torch.equal(v.double(), w.double()), f"{key}.{name}: {v} vs {w} ({what})"
+            else:
+                rtol = state_rtol[f"{key}.{name}"]
+                err = float((v.double() - w.double()).abs().max() / w.double().abs().max())
+                assert err <= rtol, f"{key}.{name}: relative diff {err} > {rtol} ({what})"
+
+
+def _regression_phase(device):
+    """The regression collection at NYU Depth v2 test size, against the same
+    run on the CPU; returns its data, the collection run on the card, its
+    values, the bounds and the median step time."""
+    from metrics_tpu_torch.ops import binned_stats
+
+    preds, target = _depth_data()
+    print(f"{REG_STEPS} forward steps of [{DEPTH_PIXELS}] float32 depths ({DEPTH_BATCH} maps of "
+          f"{DEPTH_HW[0]}x{DEPTH_HW[1]}; RandomState(4), targets 0.5-10 m, preds x exp(N(0, 0.1))): 128 of the "
+          f"654 NYU Depth v2 test images, {preds.numel():,} values")
+    _run_collection(_regression_collection, (preds[:2], target[:2]), device)  # warm-up
+    binned_stats.KERNEL_LAUNCHES = 0
+    mc_gpu, v_gpu, step_ms, compute_ms, _ = _run_collection(_regression_collection, (preds, target), device)
+    assert binned_stats.KERNEL_LAUNCHES == 0  # no hand kernel lies on this path
+    t0 = time.perf_counter()
+    mc_cpu, v_cpu, _, _, _ = _run_collection(_regression_collection, (preds, target), "cpu")
+    cpu_s = time.perf_counter() - t0
+    assert mc_gpu.compute_group_keys == []  # regression declares no update_identity
+    state_rtol, value_rtol, kappa = _regression_bounds(preds, target)
+    _check_regression_states(mc_gpu, mc_cpu, state_rtol, "card vs CPU")
+    assert int(mc_gpu["mse"].total) == REG_STEPS * DEPTH_PIXELS
+    errs = {k: _check_regression(k, v_gpu[k], v_cpu[k], value_rtol, kappa) for k in v_cpu}
+    step = float(np.median(step_ms))
+    print(f"forward step on the card (host clock, after a warm-up run): median {step:.4f} ms, max "
+          f"{max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; states equal to the CPU run (counts exact, float "
+          f"states within their bounds); max abs err of values against it {errs} (CPU run {cpu_s:.1f} s); "
+          f"values " + ", ".join(f"{k} {float(v):.7f}" for k, v in v_gpu.items()))
+    print(f"peak device memory of a step above its inputs: "
+          f"{_step_peak_mib(_regression_collection, (preds[0], target[0]), device):.1f} MiB")
+    return (preds, target), mc_gpu, v_gpu, (state_rtol, value_rtol, kappa), step
+
+
+def _sts_data():
+    """The regression-cat phase's 24 batches: [2048, 768] embedding pairs
+    with a cosine of about 0.6, and per pair its cosine (computed once, on the
+    host) and an STS-B-style gold score on 0-5 in steps of 0.2."""
+    rng = np.random.RandomState(5)
+    a = rng.normal(0.0, 1.0, (CAT_STEPS, BATCH, EMBED_DIM)).astype(np.float32)
+    b = (0.75 * a + rng.normal(0.0, 1.0, a.shape)).astype(np.float32)
+    a64, b64 = a.astype(np.float64), b.astype(np.float64)
+    cos = ((a64 * b64).sum(-1) / np.sqrt((a64 * a64).sum(-1) * (b64 * b64).sum(-1))).astype(np.float32)
+    del a64, b64
+    z = (cos - cos.mean()) / cos.std()
+    gold = np.clip(np.round((2.5 + 1.2 * z + rng.normal(0.0, 0.8, z.shape)) / 0.2) * 0.2, 0.0, 5.0)
+    gold = gold.astype(np.float32)
+    return torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(cos), torch.from_numpy(gold)
+
+
+def _regression_cat_phase(device):
+    """SpearmanCorrcoef and CosineSimilarity(mean), in list mode and with
+    ``with_capacity(49152)``, 24 ``update`` steps each, against the CPU."""
+    from metrics_tpu_torch import CatBuffer, CosineSimilarity, MetricCollection, SpearmanCorrcoef
+
+    a, b, cos, gold = _sts_data()
+    ties = len(torch.unique(gold))
+    print(f"{CAT_STEPS} update steps of {BATCH} pairs: CosineSimilarity(mean) on [{BATCH}, {EMBED_DIM}] float32 "
+          f"embedding pairs (BERT-base width; RandomState(5)), {2 * a.numel() * 4 / 1e6:.0f} MB of cat state at "
+          f"{CAT_CAPACITY} rows; SpearmanCorrcoef of the pairs' cosines against gold scores in steps of 0.2 on "
+          f"0-5 ({ties} distinct gold values over {gold.numel()} pairs)")
+
+    def spearman(dev, capacity=True):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the memory-footprint warning
+            m = SpearmanCorrcoef(device=dev)
+        return MetricCollection({"spearman": m.with_capacity(CAT_CAPACITY) if capacity else m})
+
+    def cosine(dev, capacity=True):
+        m = CosineSimilarity(reduction="mean", device=dev)
+        return MetricCollection({"cosine": m.with_capacity(CAT_CAPACITY) if capacity else m})
+
+    for name, make, data, atol in (("cosine", cosine, (a, b), COSINE_ATOL),
+                                   ("spearman", spearman, (cos, gold), SPEARMAN_ATOL)):
+        batches = (data[0].to(device), data[1].to(device))
+        torch.cuda.synchronize()
+        values = {}
+        for mode in ("capacity", "list"):
+            mk = (lambda dev, m=make: m(dev)) if mode == "capacity" else (lambda dev, m=make: m(dev, capacity=False))
+            warm = mk(device)  # warm-up: the first updates load the CUDA modules
+            _run_updates(warm, (batches[0][:2], batches[1][:2]), device)
+            warm.compute()
+            del warm
+            mc = mk(device)
+            step_ms = _run_updates(mc, batches, device)
+            value, (cold_ms, compute_ms), peak_mib, syncs, d2h, device_ms, n_kernels = _profile_compute(mc)
+            # the profiler may record none of a compute's kernels: CUDA events
+            # around back-to-back computes give its time on the card too
+            event_ms = _time_ms(lambda: _fresh_compute(mc), reps=5, inner=5)
+            if mode == "capacity":
+                assert isinstance(mc[name].preds, CatBuffer) and len(mc[name].preds) == CAT_CAPACITY
+            mc_cpu = mk("cpu")
+            for i in range(CAT_STEPS):
+                mc_cpu.update(data[0][i], data[1][i])
+            t0 = time.perf_counter()
+            value_cpu = mc_cpu.compute()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            _check_cat_states(mc, mc_cpu, f"{name} {mode} mode, card vs CPU")
+            err = _check_values(name, value[name], value_cpu[name], atol)
+            step = float(np.median(step_ms))
+            print(f"{name}, {mode} mode: update step median {step:.4f} ms (max {max(step_ms):.4f}); compute first "
+                  f"{cold_ms:.4f} ms, again {compute_ms:.4f} ms with {syncs} cudaStreamSynchronize and {d2h} DtoH "
+                  f"copies, {n_kernels} device operations for {device_ms:.4f} ms of device time (torch.profiler), "
+                  f"{event_ms:.4f} ms a compute by CUDA events over 5 back-to-back; peak device memory "
+                  f"of compute {peak_mib:.1f} MiB above its inputs; value {float(value[name]):.7f}; states equal to "
+                  f"the CPU run, max abs err against it {err} (bound {atol:.2e}; CPU compute {cpu_ms:.1f} ms)")
+            print(f"  update steps: {_profile_updates(mk, batches, device, step)}")
+            values[mode] = value[name]
+            del mc, mc_cpu
+        assert torch.equal(values["capacity"], values["list"]), f"{name}: capacity mode differs from list mode"
+        print(f"{name}: capacity mode equal to list mode on the card, bit for bit")
+        del batches
+
+
 def _synced_rows(mc):
     """Every state of a collection on the host: a tensor as it is, a cat
     state's rows."""
@@ -647,13 +915,14 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         for name, (data, make, steps) in {
             "report": (_report_data, lambda: _report_collection(device), STEPS),
             "ranking": (_curve_data, lambda: _ranking_collection(device, CURVE_CAPACITY // world), CURVE_STEPS),
+            "regression": (_depth_data, lambda: _regression_collection(device), REG_STEPS),
         }.items():
             probs, labels = data()
             share = slice(rank * steps // world, (rank + 1) * steps // world)
             probs, labels = probs[share].to(device), labels[share].to(device)
             mc = make()
             for i in range(len(probs)):
-                mc(probs[i], labels[i]) if name == "report" else mc.update(probs[i], labels[i])
+                mc.update(probs[i], labels[i]) if name == "ranking" else mc(probs[i], labels[i])
             del probs, labels
             runs = {}
             for fused in (True, False, False, True):  # in turns; the second of each is kept
@@ -716,10 +985,11 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         dist.destroy_process_group()
 
 
-def _sync_phase(device, report_gpu, report_values):
+def _sync_phase(device, report_gpu, report_values, regression):
     """Two ranks on the card, each with half of the batches, against one
     process on the card over all of them (``report_gpu``, the report
-    phase's grouped run, and a ranking collection built here)."""
+    phase's grouped run, a ranking collection built here, and the
+    regression phase's collection, values and bounds in ``regression``)."""
     import torch.multiprocessing as mp
 
     with socket.socket() as s:
@@ -757,6 +1027,31 @@ def _sync_phase(device, report_gpu, report_values):
                   f"{got['per_leaf']['collectives']} collectives ({got['per_leaf']['bytes']} bytes in) in "
                   f"{got['per_leaf']['ms']:.4f} ms; compute() syncs once ({got['compute_collectives']} collectives); "
                   f"synced states equal to one process over all batches; max abs err of values {errs}")
+    reg_gpu, reg_values, (state_rtol, value_rtol, kappa) = regression
+    want_states = _synced_rows(reg_gpu)
+    for rank, result in enumerate(ranks):
+        got = result["regression"]
+        assert sorted(got["states"]) == sorted(want_states)
+        for k, v in want_states.items():
+            g, (metric, name) = got["states"][k].double(), k.split(".")
+            if metric == "pearson":
+                # gathered, not reduced: one entry per rank, folded by compute()
+                assert g.shape == (SYNC_WORLD,), f"{k}: synced shape {tuple(g.shape)}"
+                if name == "n_total":
+                    assert float(g.sum()) == float(v), f"{k}: {g} vs {v}"
+            elif name in REG_COUNTS:
+                assert torch.equal(g, v.double()), f"regression rank {rank}: synced {k} {g} vs {v}"
+            else:
+                err = float((g - v.double()).abs().max() / v.double().abs().max())
+                assert err <= state_rtol[k], f"regression rank {rank}: synced {k} relative diff {err}"
+        errs = {k: _check_regression(k, got["values"][k], v, value_rtol, kappa) for k, v in reg_values.items()}
+        assert got["compute_collectives"] == got["fused"]["collectives"]
+        print(f"regression, rank {rank}: fused sync {got['fused']['collectives']} collectives "
+              f"({got['fused']['bytes']} bytes in) in {got['fused']['ms']:.4f} ms, per-leaf "
+              f"{got['per_leaf']['collectives']} collectives ({got['per_leaf']['bytes']} bytes in) in "
+              f"{got['per_leaf']['ms']:.4f} ms; Pearson's states gathered to [{SYNC_WORLD}] and folded; counts equal "
+              f"to one process over all batches, float states and values within their bounds; max abs err of values "
+              f"{errs}")
     cases = [r["cases"] for r in ranks]
     assert [c["num_classes"] for c in cases] == ["StateDivergenceError"] * SYNC_WORLD, cases
     assert [c["nonfinite"] for c in cases] == ["NonFiniteStateError"] * SYNC_WORLD, cases
@@ -1024,8 +1319,17 @@ def main() -> int:
            f"{CURVE_CLASSES} classes; binary curves on {BINARY_ROWS} tied scores")
     _curves_phase(smi, device)
 
-    _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report and ranking collections, divergence cases")
-    _sync_phase(device, report_gpu, report_values)
+    _phase("regression collection: MSE, RMSE, MAE, MSLE, MAPE, SMAPE, R2Score, ExplainedVariance, PearsonCorrcoef, "
+           f"TweedieDevianceScore(power=2) over {REG_STEPS} steps of {DEPTH_PIXELS} depths")
+    reg_data, reg_gpu, reg_values, reg_bounds, reg_step_ms = _regression_phase(device)
+
+    _phase("regression-cat: SpearmanCorrcoef and CosineSimilarity(mean), list mode and with_capacity"
+           f"({CAT_CAPACITY})")
+    _regression_cat_phase(device)
+
+    _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking and regression collections, "
+           "divergence cases")
+    _sync_phase(device, report_gpu, report_values, (reg_gpu, reg_values, reg_bounds))
 
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):
@@ -1037,6 +1341,8 @@ def main() -> int:
         _profile(make, (report_probs, report_labels), device, ms_step)
     print("segmentation collection (with dice_score):")
     _profile(segmentation, (seg_probs, seg_labels), device, seg_step_ms, steps=SEG_STEPS - 1, per_step=dice_score)
+    print("regression collection:")
+    _profile(_regression_collection, reg_data, device, reg_step_ms)
 
     main = timings[SLICE_SHAPES[0]]
     kernels = [{

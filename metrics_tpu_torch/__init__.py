@@ -40,6 +40,19 @@ from metrics_tpu_torch.core.average import AverageMeter
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.regression import (
+    CosineSimilarity,
+    ExplainedVariance,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    PearsonCorrcoef,
+    R2Score,
+    SpearmanCorrcoef,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+)
 
 __all__ = [
     "AUC",
@@ -55,6 +68,8 @@ __all__ = [
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
+    "CosineSimilarity",
+    "ExplainedVariance",
     "F1",
     "FBeta",
     "HammingDistance",
@@ -62,12 +77,21 @@ __all__ = [
     "IoU",
     "KLDivergence",
     "MatthewsCorrcoef",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "PearsonCorrcoef",
     "Precision",
     "PrecisionRecallCurve",
+    "R2Score",
     "ROC",
     "Recall",
+    "SpearmanCorrcoef",
     "Specificity",
     "StatScores",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
 ]

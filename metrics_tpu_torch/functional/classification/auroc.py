@@ -72,6 +72,12 @@ def _auroc_compute(
                 raise ValueError("Detected input to `multiclass` but you did not provide `num_classes` argument")
             if average == AverageMethod.WEIGHTED and len(torch.unique(target)) < num_classes:
                 # classes with zero observations are dropped from the average
+                if target.ndim != 1:
+                    # the JAX package's indexed update raises ValueError here
+                    raise ValueError(
+                        f"Weighted AUROC over unobserved classes needs labels of shape [N], got "
+                        f"{tuple(target.shape)} (label preds of multi-label or multi-dim input)."
+                    )
                 target_bool_mat = torch.zeros((len(target), num_classes), dtype=torch.bool, device=target.device)
                 target_bool_mat[torch.arange(len(target), device=target.device), target.long()] = True
                 class_observed = torch.sum(target_bool_mat, dim=0) > 0

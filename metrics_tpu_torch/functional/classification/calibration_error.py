@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _input_mode
+from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_mode
 from metrics_tpu_torch.utils.data import _linspace_like_reference
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -56,6 +56,12 @@ def _ce_update(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor,
     if mode == DataType.BINARY:
         confidences, accuracies = preds, target
     elif mode == DataType.MULTICLASS:
+        if preds.ndim < 2:
+            # the JAX package's jnp.max(preds, axis=1) raises ValueError here
+            raise ValueError(
+                f"Calibration error needs probability scores of shape [N, C], got label preds of shape "
+                f"{tuple(preds.shape)}."
+            )
         confidences = torch.amax(preds, dim=1)
         predictions = torch.argmax(preds, dim=1)
         accuracies = predictions == target
@@ -63,6 +69,10 @@ def _ce_update(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor,
         flat = torch.transpose(preds, 1, -1).reshape(-1, preds.shape[1])
         confidences = torch.amax(flat, dim=1)
         predictions = torch.argmax(flat, dim=1)
+        _check_broadcastable(
+            tuple(predictions.shape), (target.numel(),),
+            "Calibration error needs probability scores of shape [N, C, ...], got label preds",
+        )
         accuracies = predictions == target.reshape(-1)
     else:
         raise ValueError(

@@ -8,7 +8,7 @@ from typing import Optional
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _input_format_classification
+from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -36,6 +36,10 @@ def _confusion_matrix_update(
         preds = torch.argmax(preds, dim=1)
         target = torch.argmax(target, dim=1)
     if multilabel:
+        _check_broadcastable(
+            tuple(preds.shape), (num_classes,),
+            f"`multilabel=True` needs multi-label input with {num_classes} columns",
+        )
         unique_mapping = (2 * target + preds) + 4 * torch.arange(num_classes, device=preds.device)
         minlength = 4 * num_classes
     else:

@@ -8,6 +8,7 @@ import torch
 
 from metrics_tpu_torch.functional.classification.confusion_matrix import _confusion_matrix_update
 from metrics_tpu_torch.parallel.sync import reduce
+from metrics_tpu_torch.utils.checks import _check_not_empty
 from metrics_tpu_torch.utils.data import get_num_classes
 
 
@@ -67,6 +68,7 @@ def iou(
         >>> round(float(iou(preds, target)), 4)
         0.5833
     """
+    _check_not_empty(target)
     num_classes = get_num_classes(preds=preds, target=target, num_classes=num_classes)
     confmat = _confusion_matrix_update(preds, target, num_classes, threshold)
     return _iou_from_confmat(confmat, num_classes, ignore_index, absent_score, reduction)

@@ -3,6 +3,7 @@
 Counterpart of ``metrics_tpu/functional/classification/kl_divergence.py``.
 """
 from typing import Optional, Tuple
+from warnings import warn
 
 import torch
 
@@ -50,3 +51,26 @@ def kl_divergence(
     """
     measures, total = _kld_update(p, q, log_prob)
     return _kld_compute(measures, torch.tensor(total, device=measures.device), reduction)
+
+
+def kldivergence(
+    p: torch.Tensor, q: torch.Tensor, log_prob: bool = False, reduction: Optional[str] = "mean"
+) -> torch.Tensor:
+    """Deprecated alias of :func:`kl_divergence`: warns, then calls it.
+
+    Example:
+        >>> import warnings
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import kldivergence
+        >>> p = torch.tensor([[0.36, 0.48, 0.16]])
+        >>> q = torch.tensor([[1/3, 1/3, 1/3]])
+        >>> with warnings.catch_warnings():
+        ...     warnings.simplefilter("ignore", DeprecationWarning)
+        ...     round(float(kldivergence(p, q)), 4)
+        0.0853
+    """
+    warn(
+        "`functional.kldivergence` was renamed to `functional.kl_divergence` and will be removed.",
+        DeprecationWarning,
+    )
+    return kl_divergence(p, q, log_prob, reduction)

@@ -29,6 +29,9 @@ def _binary_clf_curve(
     if sample_weights is not None and not isinstance(sample_weights, torch.Tensor):
         sample_weights = torch.as_tensor(sample_weights, dtype=torch.float32, device=preds.device)
 
+    if preds.shape[0] == 0:
+        # the JAX package's gather of the last row fails with TypeError
+        raise TypeError("Expected a non-empty batch: a curve needs at least one score.")
     if preds.ndim > target.ndim:
         preds = preds[:, 0]
     desc = torch.sort(-preds, stable=True).indices

@@ -127,6 +127,13 @@ def _reduce_stat_scores(
     scores = torch.where(torch.isnan(scores), torch.full_like(scores, float(zero_division)), scores)
 
     if mdmc_average == MDMCAverageMethod.SAMPLEWISE:
+        if scores.ndim == 0:
+            # torch.mean(dim=0) accepts a 0-d tensor; the JAX package's
+            # jnp.mean(axis=0) raises IndexError on it, and so does the port
+            raise IndexError(
+                "`mdmc_average='samplewise'` averages the scores of each sample of multi-dim multi-class "
+                "input, but these inputs reduced to one scalar score: the input is not multi-dim multi-class."
+            )
         scores = torch.mean(scores, dim=0)
         ignore_mask = torch.sum(ignore_mask, dim=0).bool()
 

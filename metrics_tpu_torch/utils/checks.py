@@ -17,6 +17,24 @@ def _is_floating(x: torch.Tensor) -> bool:
     return x.is_floating_point()
 
 
+def _check_not_empty(target: torch.Tensor) -> None:
+    """An empty batch has no label to validate: the JAX package fails on the
+    ``min()`` of its target with ``ValueError``, torch with ``RuntimeError``."""
+    if target.numel() == 0:
+        raise ValueError(f"Expected a non-empty batch, got `target` of shape {tuple(target.shape)}.")
+
+
+def _check_broadcastable(shape_a: Tuple[int, ...], shape_b: Tuple[int, ...], message: str) -> None:
+    """Raise where the JAX package's elementwise op on arrays of these shapes
+    raises: ``TypeError`` from ``lax`` when the ranks agree, ``ValueError``
+    from ``jnp``'s broadcast when they differ (torch raises ``RuntimeError``
+    for both)."""
+    if all(a == b or a == 1 or b == 1 for a, b in zip(reversed(shape_a), reversed(shape_b))):
+        return
+    error = TypeError if len(shape_a) == len(shape_b) else ValueError
+    raise error(f"{message} (shapes {tuple(shape_a)} and {tuple(shape_b)} do not broadcast)")
+
+
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
     if preds.shape != target.shape:
         raise RuntimeError(
@@ -84,6 +102,7 @@ def _validate_values(
     """Value-dependent validation (reads the data on the host)."""
     if _is_floating(target):
         raise ValueError("The `target` has to be an integer tensor.")
+    _check_not_empty(target)
     if int(target.min()) < 0:
         raise ValueError("The `target` has to be a non-negative tensor.")
     preds_float = _is_floating(preds)

@@ -37,6 +37,10 @@ def state_dict_from_reference(
     dtype, other floating states become float32, list states stay lists (of
     converted tensors), and a fixed-capacity CatBuffer snapshot becomes a
     :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` with its flag.
+    Shapes carry over as they are: a state that took a batch's ``[D]``
+    shape (ExplainedVariance) and a ``dist_reduce_fx=None`` state gathered
+    to ``[W]`` by a sync (PearsonCorrcoef's moments, whose float32 count
+    stays float32) load and compute as they would in the JAX package.
     ``device=None`` means CUDA, as everywhere in this package.
     """
     dev = resolve_device(device)

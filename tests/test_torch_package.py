@@ -97,6 +97,30 @@ DOCTEST_MODULES = [
     "metrics_tpu_torch.functional.classification.calibration_error",
     "metrics_tpu_torch.functional.classification.kl_divergence",
     "metrics_tpu_torch.functional.classification.hinge",
+    "metrics_tpu_torch.regression.cosine_similarity",
+    "metrics_tpu_torch.regression.explained_variance",
+    "metrics_tpu_torch.regression.mean_absolute_error",
+    "metrics_tpu_torch.regression.mean_absolute_percentage_error",
+    "metrics_tpu_torch.regression.mean_squared_error",
+    "metrics_tpu_torch.regression.mean_squared_log_error",
+    "metrics_tpu_torch.regression.pearson",
+    "metrics_tpu_torch.regression.r2",
+    "metrics_tpu_torch.regression.r2score",
+    "metrics_tpu_torch.regression.spearman",
+    "metrics_tpu_torch.regression.symmetric_mean_absolute_percentage_error",
+    "metrics_tpu_torch.regression.tweedie_deviance",
+    "metrics_tpu_torch.functional.regression.cosine_similarity",
+    "metrics_tpu_torch.functional.regression.explained_variance",
+    "metrics_tpu_torch.functional.regression.mean_absolute_error",
+    "metrics_tpu_torch.functional.regression.mean_absolute_percentage_error",
+    "metrics_tpu_torch.functional.regression.mean_squared_error",
+    "metrics_tpu_torch.functional.regression.mean_squared_log_error",
+    "metrics_tpu_torch.functional.regression.pearson",
+    "metrics_tpu_torch.functional.regression.r2",
+    "metrics_tpu_torch.functional.regression.r2score",
+    "metrics_tpu_torch.functional.regression.spearman",
+    "metrics_tpu_torch.functional.regression.symmetric_mean_absolute_percentage_error",
+    "metrics_tpu_torch.functional.regression.tweedie_deviance",
 ]
 
 
@@ -132,6 +156,17 @@ DEFAULT_DEVICE_CASES = {
     "KLDivergence": lambda **kw: port.KLDivergence(**kw),
     "Hinge": lambda **kw: port.Hinge(**kw),
     "AverageMeter": lambda **kw: port.AverageMeter(**kw),
+    "MeanSquaredError": lambda **kw: port.MeanSquaredError(squared=False, **kw),
+    "MeanAbsoluteError": lambda **kw: port.MeanAbsoluteError(**kw),
+    "MeanSquaredLogError": lambda **kw: port.MeanSquaredLogError(**kw),
+    "MeanAbsolutePercentageError": lambda **kw: port.MeanAbsolutePercentageError(**kw),
+    "SymmetricMeanAbsolutePercentageError": lambda **kw: port.SymmetricMeanAbsolutePercentageError(**kw),
+    "R2Score": lambda **kw: port.R2Score(num_outputs=3, **kw),
+    "ExplainedVariance": lambda **kw: port.ExplainedVariance(**kw),
+    "TweedieDevianceScore": lambda **kw: port.TweedieDevianceScore(power=2.0, **kw),
+    "PearsonCorrcoef": lambda **kw: port.PearsonCorrcoef(**kw),
+    "SpearmanCorrcoef": lambda **kw: port.SpearmanCorrcoef(**kw).with_capacity(64),
+    "CosineSimilarity": lambda **kw: port.CosineSimilarity(reduction="mean", **kw),
     # a composite takes its operands' device
     "CompositionalMetric": lambda **kw: port.Precision(**kw) * port.Recall(**kw) + 1.0,
 }
