@@ -46,25 +46,44 @@
    their cosines against STS-B-style gold scores) in list mode and with
    ``with_capacity(49152)``: the two modes equal bit for bit, both against
    the CPU run; times ``compute()``, counts its host reads, its peak memory;
-11. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
+11. drives the retrieval collection at MS MARCO passage dev size (MRR, MAP,
+   nDCG@10, P@10, R@100, FallOut@100 and MAP skipping empty queries over one
+   grouping sort; 6,980 queries x 1,000 candidates in 70 ``update`` steps)
+   in list mode and with ``num_queries`` + ``with_capacity``: the two modes
+   equal bit for bit, the collection equal to its seven members run alone,
+   both modes against the CPU run within ``RETRIEVAL_ATOL``; times and
+   profiles ``compute()`` of the collection (one sort) and of the members
+   (seven): device operations, host reads, peak memory, the top device
+   operations by time;
+12. snapshots the curves collection (capacity mode) and the retrieval
+   collection (capacity mode) with ``save_checkpoint``, loads them into fresh
+   metrics on the card (states bit-equal, ``compute()`` equal), times save
+   (device-to-host copy, CRC, write + fsync) and load, and holds a file with
+   one flipped payload byte to ``CheckpointCorruptError`` with the target's
+   states unchanged;
+13. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
    gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
    report batches, of the curves batches (AUROC + AveragePrecision with
-   ``with_capacity``) and of the regression batches (PearsonCorrcoef's
-   ``dist_reduce_fx=None`` states gather to ``[2]`` and fold), the
-   collections sync through one health header and one bucketed plan, and the
-   synced values on both ranks are held against one process on the card over
-   all batches; counts the collectives of the fused
+   ``with_capacity``), of the regression batches (PearsonCorrcoef's
+   ``dist_reduce_fx=None`` states gather to ``[2]`` and fold) and of the
+   retrieval queries, the collections sync through one health header and one
+   bucketed plan, and the synced values on both ranks are held against one
+   process on the card over all batches; counts the collectives of the fused
    sync against the per-leaf sync and times both; then drives three
    divergence cases on the two ranks (``num_classes`` 1000 against 1001, the
    same with ``on_error="local"``/``"warn"``, one NaN under
    ``enable_check_finite()``), which must raise, degrade and raise on both;
-12. profiles a step of each collection (the report collection with and
+   each rank saves its shard (``world=2``) of the report, ranking and
+   retrieval collections, and the main process folds the two into one
+   (``world=1``), held against the one-process runs: an elastic resume;
+14. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, and the script then exits non-zero without the last
 line. Without CUDA it exits with code 2 and prints no result.
 """
+import contextlib
 import json
 import os
 import socket
@@ -136,6 +155,21 @@ COSINE_ATOL = 2 * (2 * 9.6 + 9.6 + 15.6) * 2.0 ** -24
 # (15.6 roundings), the covariance's terms of mixed sign (Σ|ab| / |Σab| below
 # 3 at rho of 0.5), and rho = cov / (sd * sd): 2 * (3 + 1) * 15.6 * 2**-24
 SPEARMAN_ATOL = 2 * (3 + 1) * 15.6 * 2.0 ** -24
+# retrieval phase: MS MARCO passage ranking, dev ("small") set, re-ranking
+# the official BM25 top-1000: 6,980 queries x 1,000 candidates, 70 update
+# steps of 100 queries (the last of 80); query ids drawn from the range of
+# MS MARCO qids
+MSMARCO_QUERIES, MSMARCO_DEPTH, MSMARCO_STEP_QUERIES = 6980, 1000, 100
+MSMARCO_ROWS = MSMARCO_QUERIES * MSMARCO_DEPTH  # 6,980,000
+MSMARCO_STEPS = -(-MSMARCO_QUERIES // MSMARCO_STEP_QUERIES)  # 70
+MSMARCO_QID_RANGE = 1_102_432
+# retrieval values, card vs CPU. Per query, a score is a quotient of float32
+# sums whose nonzero terms are few (at most 2 relevant rows, the rest add
+# exact zeros or 0/1 counts), so it rounds at most ~3 times (one more for a
+# log2 discount, which may differ by an ulp); then a float32 mean over 6,980
+# queries (log2(6980) = 12.8 roundings of values in [0, 1]). The two sides
+# may err in opposite directions: 2 * (12.8 + 3) * 2**-24 = 1.9e-6
+RETRIEVAL_ATOL = 2 * (float(np.log2(MSMARCO_QUERIES)) + 3) * 2.0 ** -24
 
 
 def _phase(name: str) -> None:
@@ -521,28 +555,26 @@ def _ranking_collection(dev, capacity):
                              "ap": AveragePrecision(**k).with_capacity(capacity)})
 
 
+def _curves_collection(dev, capacity=True):
+    """AUROC + AveragePrecision (macro, 1000 classes; ``with_capacity`` in
+    capacity mode) + CalibrationError(n_bins=15)."""
+    from metrics_tpu_torch import AUROC, AveragePrecision, CalibrationError, MetricCollection
+
+    k = dict(num_classes=CURVE_CLASSES, average="macro", device=dev)
+    auroc, ap = AUROC(**k), AveragePrecision(**k)
+    if capacity:
+        auroc.with_capacity(CURVE_CAPACITY)
+        ap.with_capacity(CURVE_CAPACITY)
+    return MetricCollection({"auroc": auroc, "ap": ap, "ce": CalibrationError(n_bins=15, device=dev)})
+
+
 def _curves_phase(smi, device):
     """The curves collection at ImageNet-1k width in capacity and list mode,
     and the binary curve metrics on 2^20 tied scores in both modes."""
-    from metrics_tpu_torch import (
-        AUROC,
-        ROC,
-        AveragePrecision,
-        CalibrationError,
-        CatBuffer,
-        MetricCollection,
-        PrecisionRecallCurve,
-    )
+    from metrics_tpu_torch import AUROC, ROC, AveragePrecision, CatBuffer, MetricCollection, PrecisionRecallCurve
 
     probs, labels = _curve_data()
-
-    def curves(dev, capacity=True):
-        k = dict(num_classes=CURVE_CLASSES, average="macro", device=dev)
-        auroc, ap = AUROC(**k), AveragePrecision(**k)
-        if capacity:
-            auroc.with_capacity(CURVE_CAPACITY)
-            ap.with_capacity(CURVE_CAPACITY)
-        return MetricCollection({"auroc": auroc, "ap": ap, "ce": CalibrationError(n_bins=15, device=dev)})
+    curves = _curves_collection
 
     print(f"{smi}; {CURVE_STEPS} update steps of [{BATCH}, {CURVE_CLASSES}] float32 softmax probabilities "
           f"(RandomState(3)), capacity {CURVE_CAPACITY}: 49,152 of the 50,000 ILSVRC-2012 validation images")
@@ -581,7 +613,8 @@ def _curves_phase(smi, device):
         errs = {k: _check_values(k, values[k], values_cpu[k], CE_ATOL if k == "ce" else atol) for k in values}
         print(f"  states equal to the CPU run; max abs err against it {errs} (CPU compute {cpu_ms:.1f} ms)")
         results[mode] = dict(values=values, step_ms=step, compute_ms=compute_ms, cold_ms=cold_ms, syncs=syncs,
-                             d2h=d2h, peak_mib=peak_mib, device_ms=device_ms)
+                             d2h=d2h, peak_mib=peak_mib, device_ms=device_ms,
+                             collection=mc if mode == "capacity" else None)  # the checkpoint phase's
         del mc, mc_cpu
     errs = {k: _check_values(k, results["capacity"]["values"][k], results["list"]["values"][k],
                              0.0 if k == "ce" else CURVE_ATOL) for k in results["list"]["values"]}
@@ -864,6 +897,324 @@ def _regression_cat_phase(device):
         del batches
 
 
+def _msmarco_data():
+    """The retrieval phase's 70 update batches (scores, relevance labels,
+    query ids): 100 queries of 1,000 candidates each, the last batch 80. Query ids are drawn without replacement from [0, 1,102,432); 14% of
+    the queries have no relevant candidate, 80% one and 6% two (BM25's top
+    1000 misses about 14% of the dev queries); scores are N(0, 1), plus 1.5
+    on relevant rows, rounded to 1/256 so that ties (and -0.0) are common."""
+    rng = np.random.RandomState(6)
+    qids = rng.choice(MSMARCO_QID_RANGE, MSMARCO_QUERIES, replace=False)
+    n_rel = rng.choice(3, MSMARCO_QUERIES, p=[0.14, 0.80, 0.06])
+    first = rng.randint(0, MSMARCO_DEPTH, MSMARCO_QUERIES)
+    second = (first + 1 + rng.randint(0, MSMARCO_DEPTH - 1, MSMARCO_QUERIES)) % MSMARCO_DEPTH
+    target = np.zeros((MSMARCO_QUERIES, MSMARCO_DEPTH), np.int64)
+    rows = np.arange(MSMARCO_QUERIES)
+    target[rows[n_rel >= 1], first[n_rel >= 1]] = 1
+    target[rows[n_rel == 2], second[n_rel == 2]] = 1
+    scores = rng.standard_normal((MSMARCO_QUERIES, MSMARCO_DEPTH)).astype(np.float32) + np.float32(1.5) * target
+    scores = (np.round(scores * 256) / 256).astype(np.float32)
+    indexes = np.repeat(qids, MSMARCO_DEPTH)
+    flat = [torch.from_numpy(x.reshape(-1)) for x in (scores, target, indexes)]
+    step = MSMARCO_STEP_QUERIES * MSMARCO_DEPTH
+    return [tuple(x[i * step:(i + 1) * step] for x in flat) for i in range(MSMARCO_STEPS)]
+
+
+def _retrieval_members(dev, capacity=None):
+    """The seven re-ranking metrics: MRR, MAP, nDCG@10, P@10, R@100,
+    fall-out@100 and MAP skipping queries with no relevant candidate; with
+    ``capacity``, each with ``num_queries`` and CatBuffer states of its own."""
+    from metrics_tpu_torch import (
+        RetrievalFallOut,
+        RetrievalMAP,
+        RetrievalMRR,
+        RetrievalNormalizedDCG,
+        RetrievalPrecision,
+        RetrievalRecall,
+    )
+
+    k = dict(device=dev, num_queries=MSMARCO_QUERIES if capacity else None)
+    members = {"mrr": RetrievalMRR(**k), "map": RetrievalMAP(**k), "ndcg10": RetrievalNormalizedDCG(k=10, **k),
+               "p10": RetrievalPrecision(k=10, **k), "r100": RetrievalRecall(k=100, **k),
+               "fallout100": RetrievalFallOut(k=100, **k), "map_skip": RetrievalMAP(empty_target_action="skip", **k)}
+    if capacity:
+        for m in members.values():
+            m.with_capacity(capacity)
+    return members
+
+
+def _retrieval_collection(dev, capacity=None):
+    """The seven metrics over one grouping: list mode, or ``num_queries`` and
+    ``with_capacity(capacity)``."""
+    from metrics_tpu_torch import RetrievalCollection
+
+    rc = RetrievalCollection(_retrieval_members(dev), num_queries=MSMARCO_QUERIES if capacity else None, device=dev)
+    return rc.with_capacity(capacity) if capacity else rc
+
+
+def _profile_call(fn, reps=5, top=8):
+    """One call of ``fn`` (a ``compute()``): its time by CUDA events (median
+    of ``reps`` after a warm-up), its peak device memory above what was
+    allocated before, and, by ``torch.profiler``, its device operations,
+    their device time, its host reads and the device operations that take
+    the most time, by name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    values = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        values = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    syncs, d2h = _host_reads(prof)
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    by_name = {}
+    for e in ops:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    return values, dict(event_ms=float(np.median(times)), event_ms_all=times, peak_mib=peak_mib, syncs=syncs,
+                        d2h=d2h, ops=len(ops), device_ms=sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+                        top=sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top])
+
+
+def _print_profile(what, p):
+    device = "not measured (the profiler recorded no device operation)" if not p["ops"] else (
+        f"{p['ops']} device operations for {p['device_ms']:.4f} ms of device time")
+    print(f"  {what}: compute() {p['event_ms']:.4f} ms by CUDA events (median of "
+          f"{[round(t, 4) for t in p['event_ms_all']]}); {device}; {p['syncs']} cudaStreamSynchronize and "
+          f"{p['d2h']} DtoH copies; peak device memory {p['peak_mib']:.1f} MiB above its inputs")
+    for name, (ms, n) in p["top"]:
+        print(f"    device {ms:9.4f} ms in {n:4d} op(s)  {name[:100]}")
+
+
+def _fresh(metric):
+    """``compute()`` again, not from the compute cache."""
+    metric._computed = None
+    return metric.compute()
+
+
+def _retrieval_phase(smi, device):
+    """The retrieval collection at MS MARCO passage dev size in list mode and
+    in capacity mode, against the CPU run, the two modes against each other
+    and the collection against its seven members alone; times and profiles
+    ``compute()``: one grouping sort for seven metrics against seven.
+    Returns the capacity-mode collection and its values."""
+    data = _msmarco_data()
+    n_rel = sum(int(t.sum()) for _, t, _ in data)
+    print(f"{smi}; {MSMARCO_STEPS} update steps of {MSMARCO_STEP_QUERIES} queries x {MSMARCO_DEPTH} candidates "
+          f"(the last {len(data[-1][0]) // MSMARCO_DEPTH} queries; RandomState(6)): {MSMARCO_ROWS} rows, {n_rel} "
+          f"relevant; query ids from [0, {MSMARCO_QID_RANGE})")
+    batches = [tuple(x.to(device) for x in step) for step in data]
+    torch.cuda.synchronize()
+
+    def run_updates(metrics):
+        step_ms = []
+        for preds, target, indexes in batches:
+            t0 = time.perf_counter()
+            for m in metrics:
+                m.update(preds, target, indexes=indexes)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return step_ms
+
+    warm = _retrieval_collection(device)  # warm-up: the first calls load the CUDA modules
+    warm.update(*batches[0][:2], indexes=batches[0][2])
+    warm.compute()
+    del warm
+    runs = {}
+    for mode, capacity in (("list", None), ("capacity", MSMARCO_ROWS)):
+        rc = _retrieval_collection(device, capacity)
+        step_ms = run_updates([rc])
+        values, prof = _profile_call(lambda: _fresh(rc))
+        runs[mode] = dict(collection=rc, values=values, prof=prof, step_ms=float(np.median(step_ms)))
+        print(f"{mode} mode: update step median {np.median(step_ms):.4f} ms (max {max(step_ms):.4f}); values "
+              + ", ".join(f"{k} {float(v):.7f}" for k, v in values.items()))
+        _print_profile("the collection (one grouping sort)", prof)
+    for k in runs["list"]["values"]:
+        assert torch.equal(runs["list"]["values"][k], runs["capacity"]["values"][k]), \
+            f"{k}: capacity mode differs from list mode on the card"
+    print("capacity mode equal to list mode on the card, bit for bit")
+    del runs["list"]["collection"]
+
+    members = _retrieval_members(device, MSMARCO_ROWS)
+    member_step_ms = run_updates(list(members.values()))
+    alone, prof = _profile_call(lambda: {k: _fresh(m) for k, m in members.items()})
+    for k, v in alone.items():
+        assert torch.equal(v, runs["capacity"]["values"][k]), f"{k}: the collection differs from its member alone"
+    print(f"the seven members alone (capacity mode, seven grouping sorts): update step of all seven median "
+          f"{np.median(member_step_ms):.4f} ms; values equal to the collection's bit for bit")
+    _print_profile("seven members alone", prof)
+    runs["members"] = dict(prof=prof, step_ms=float(np.median(member_step_ms)))
+    del members, alone
+
+    rc_cpu = _retrieval_collection("cpu")
+    for preds, target, indexes in data:
+        rc_cpu.update(preds, target, indexes=indexes)
+    t0 = time.perf_counter()
+    values_cpu = rc_cpu.compute()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    for name in ("indexes", "preds", "target"):
+        assert torch.equal(_state_rows(getattr(runs["capacity"]["collection"], name)),
+                           _state_rows(getattr(rc_cpu, name))), f"retrieval state {name} differs from the CPU run"
+    for mode in ("list", "capacity"):
+        errs = {k: _check_values(k, runs[mode]["values"][k], v, RETRIEVAL_ATOL) for k, v in values_cpu.items()}
+        print(f"{mode} mode against the CPU run (compute {cpu_ms:.1f} ms there): states equal, max abs err {errs} "
+              f"(bound {RETRIEVAL_ATOL:.3g})")
+    del rc_cpu, batches
+    return runs
+
+
+def _state_leaves(metric):
+    """``{name: state}`` of a metric, or of every member of a collection."""
+    from metrics_tpu_torch import MetricCollection
+
+    pairs = metric.items() if isinstance(metric, MetricCollection) else [("", metric)]
+    return {f"{k}.{n}": v for k, m in pairs for n, v in m._state.items()}
+
+
+def _assert_states_equal(a, b, what):
+    from metrics_tpu_torch import CatBuffer
+
+    sa, sb = _state_leaves(a), _state_leaves(b)
+    assert sorted(sa) == sorted(sb), what
+    for k, v in sa.items():
+        w = sb[k]
+        if isinstance(v, CatBuffer):
+            assert isinstance(w, CatBuffer) and (v.capacity, v.count, v.overflowed) == (w.capacity, w.count, w.overflowed)
+            v, w = v.values(), w.values()
+        elif isinstance(v, list):
+            assert len(v) == len(w), f"{what}: {k}"
+            v, w = torch.cat([x.reshape(-1) for x in v]), torch.cat([x.reshape(-1) for x in w])
+        assert v.dtype == w.dtype and v.device == w.device and torch.equal(v, w), f"{what}: state {k} differs"
+
+
+@contextlib.contextmanager
+def _call_spans(**targets):
+    """Wraps each ``module.function`` of ``targets`` ({label: (module,
+    name)}) for the block's duration: every call appends its (start, end) on
+    ``time.perf_counter`` to ``spans[label]``."""
+    spans = {label: [] for label in targets}
+    saved = []
+    for label, (module, name) in targets.items():
+        fn = getattr(module, name)
+
+        def wrapped(*args, _fn=fn, _out=spans[label], **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                _out.append((t0, time.perf_counter()))
+
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+    try:
+        yield spans
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def _span_s(spans):
+    return sum(b - a for a, b in spans)
+
+
+def _checkpoint_phase(device, curves_mc, retrieval_rc):
+    """Snapshots of the curves collection (capacity mode, one [49152, 1000]
+    state per compute group) and of the retrieval collection (capacity mode,
+    6.98M rows), loaded into fresh metrics on the card: states bit-equal,
+    ``compute()`` equal. Times the public ``save_checkpoint`` and
+    ``load_checkpoint``; the split of a save comes from timing every
+    ``zlib.crc32`` and ``os.fsync`` call they make: the leaves' CRCs, then
+    the header's CRC just before the file is written, so the time up to the
+    last CRC less the CRCs is the copy to the host (with the manifest), and
+    the time after it the write, its fsyncs and the rename. Holds a
+    corrupted file to ``CheckpointCorruptError`` before any state changes."""
+    import shutil
+    import zlib
+
+    from metrics_tpu_torch import load_checkpoint, save_checkpoint
+    from metrics_tpu_torch.utils.exceptions import CheckpointCorruptError
+
+    def fresh_curves():
+        mc = _curves_collection(device)
+        # AUROC latches its input mode at the first update
+        mc.update(curves_mc["auroc"].preds.values()[:BATCH], curves_mc["auroc"].target.values()[:BATCH])
+        mc.reset()
+        return mc
+
+    timed = dict(crc=(zlib, "crc32"), fsync=(os, "fsync"))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        paths = {}
+        for name, metric, make in (("curves", curves_mc, fresh_curves),
+                                   ("retrieval", retrieval_rc, lambda: _retrieval_collection(device, MSMARCO_ROWS))):
+            directory = os.path.join(root, name)
+            torch.cuda.synchronize()
+            with _call_spans(**timed) as spans:
+                t0 = time.perf_counter()
+                path = save_checkpoint(metric, directory, step=0, rank=0, world=1)
+                t1 = time.perf_counter()
+            save_ms = (t1 - t0) * 1e3
+            crc_s, fsync_s = _span_s(spans["crc"]), _span_s(spans["fsync"])
+            packed = spans["crc"][-1][1]  # the header's CRC: the bytes are ready
+            copy_ms = ((packed - t0) - crc_s) * 1e3
+            write_ms = (t1 - packed) * 1e3
+            nbytes = os.path.getsize(path)
+            target = make()
+            torch.cuda.synchronize()
+            with _call_spans(**timed) as spans:
+                t0 = time.perf_counter()
+                load_checkpoint(target, directory, step=0, rank=0, world=1)
+                torch.cuda.synchronize()
+                load_ms = (time.perf_counter() - t0) * 1e3
+            load_crc_ms = _span_s(spans["crc"]) * 1e3
+            _assert_states_equal(metric, target, f"{name} checkpoint round trip")
+            want, got = (_fresh_compute(metric), _fresh_compute(target)) if name == "curves" else (
+                _fresh(metric), _fresh(target))
+            for k, v in want.items():
+                assert torch.equal(got[k], v), f"{name}: {k} after the round trip differs"
+            mb = nbytes / 1e6
+            print(f"{name}: {nbytes} bytes; save {save_ms:.2f} ms ({mb / save_ms * 1e3:.1f} MB/s): copy to the host "
+                  f"and manifest {copy_ms:.2f} ms ({mb / copy_ms * 1e3:.1f} MB/s), CRC {crc_s * 1e3:.2f} ms "
+                  f"({mb / crc_s:.1f} MB/s), write + fsync + rename {write_ms:.2f} ms "
+                  f"({mb / write_ms * 1e3:.1f} MB/s; fsyncs {fsync_s * 1e3:.2f} ms); load {load_ms:.2f} ms "
+                  f"({mb / load_ms * 1e3:.1f} MB/s): CRC {load_crc_ms:.2f} ms, read + decode + copy to the card "
+                  f"{load_ms - load_crc_ms:.2f} ms; loaded on "
+                  f"{target.device if name == 'retrieval' else target['auroc'].device}: states bit-equal, "
+                  "compute() equal")
+            paths[name] = (directory, path, target)
+        directory, path, target = paths["retrieval"]
+        corrupt = os.path.join(root, "corrupt")
+        shutil.copytree(directory, corrupt)
+        corrupt_path = os.path.join(corrupt, os.path.relpath(path, directory))
+        blob = bytearray(open(corrupt_path, "rb").read())
+        blob[len(blob) // 2] ^= 0x10  # one payload byte
+        with open(corrupt_path, "wb") as f:
+            f.write(blob)
+        before = _retrieval_collection(device, MSMARCO_ROWS)
+        before.merge_state(target)
+        try:
+            load_checkpoint(target, corrupt, rank=0, world=1)
+            raise AssertionError("a flipped payload byte loaded without an error")
+        except CheckpointCorruptError as err:
+            raised = f"{type(err).__name__}: {str(err).split(': ', 1)[-1]}"
+        _assert_states_equal(before, target, "the target of the corrupted load")
+        print(f"one payload byte flipped: raised {raised}; the target's states unchanged")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _synced_rows(mc):
     """Every state of a collection on the host: a tensor as it is, a cat
     state's rows."""
@@ -876,7 +1227,7 @@ def _sync_rank(rank, world, port_no, out_dir, device):
     ``device`` (``cuda:0`` for every rank)."""
     import torch.distributed as dist
 
-    from metrics_tpu_torch import Precision
+    from metrics_tpu_torch import Precision, save_checkpoint
     from metrics_tpu_torch.parallel import sync as sync_mod
     from metrics_tpu_torch.utils.exceptions import StateDivergenceError
 
@@ -934,7 +1285,29 @@ def _sync_rank(rank, world, port_no, out_dir, device):
             out[name] = {"groups": mc.compute_group_keys, "fused": runs[True][0], "per_leaf": runs[False][0],
                          "compute_collectives": len(gathers), "states": runs[True][1],
                          "values": {k: v.cpu() for k, v in values.items()}}
+            if name != "regression":
+                # this rank's shard (rank and world from the process group)
+                save_checkpoint(mc, os.path.join(out_dir, "ckpt", name), step=0)
             del mc
+
+        # retrieval: half of the queries on each rank, capacity mode
+        data = _msmarco_data()
+        share = data[rank * MSMARCO_STEPS // world:(rank + 1) * MSMARCO_STEPS // world]
+        # one capacity on every rank (a sync merges into world x capacity rows)
+        rc = _retrieval_collection(device, -(-MSMARCO_STEPS // world) * MSMARCO_STEP_QUERIES * MSMARCO_DEPTH)
+        for preds, target, indexes in share:
+            rc.update(preds.to(device), target.to(device), indexes=indexes.to(device))
+        del data, share
+        dist.barrier()
+        torch.cuda.synchronize()
+        gathers.clear()
+        t0 = time.perf_counter()
+        values = rc.compute()  # syncs the 3 cat states through the header and the bucketed plan
+        torch.cuda.synchronize()
+        out["retrieval"] = {"ms": (time.perf_counter() - t0) * 1e3, "collectives": len(gathers),
+                            "bytes": sum(gathers), "values": {k: v.cpu() for k, v in values.items()}}
+        save_checkpoint(rc, os.path.join(out_dir, "ckpt", "retrieval"), step=0)
+        del rc
 
         # three divergence cases, every one decided by the health header
         gen = torch.Generator().manual_seed(10 + rank)
@@ -985,12 +1358,19 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         dist.destroy_process_group()
 
 
-def _sync_phase(device, report_gpu, report_values, regression):
+def _sync_phase(device, report_gpu, report_values, regression, retrieval_values):
     """Two ranks on the card, each with half of the batches, against one
     process on the card over all of them (``report_gpu``, the report
-    phase's grouped run, a ranking collection built here, and the
-    regression phase's collection, values and bounds in ``regression``)."""
+    phase's grouped run, a ranking collection built here, the regression
+    phase's collection, values and bounds in ``regression``, and the
+    retrieval phase's capacity-mode values); then the shards the two ranks
+    saved, folded into one process (an elastic resume from 2 ranks to 1),
+    against the same one-process runs."""
+    import shutil
+
     import torch.multiprocessing as mp
+
+    from metrics_tpu_torch import load_checkpoint
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -1001,9 +1381,6 @@ def _sync_phase(device, report_gpu, report_values, regression):
                        start_method="spawn")
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)]
-    for r in range(SYNC_WORLD):
-        os.remove(os.path.join(out_dir, f"rank{r}.pt"))
-    os.rmdir(out_dir)
     print(f"backend {ranks[0]['backend']} (NCCL refuses two ranks on one device: not measured on one card); "
           f"{SYNC_WORLD} processes spawned, ran and joined in {spawn_s:.1f} s")
 
@@ -1052,6 +1429,46 @@ def _sync_phase(device, report_gpu, report_values, regression):
               f"{got['per_leaf']['ms']:.4f} ms; Pearson's states gathered to [{SYNC_WORLD}] and folded; counts equal "
               f"to one process over all batches, float states and values within their bounds; max abs err of values "
               f"{errs}")
+    for rank, result in enumerate(ranks):
+        got = result["retrieval"]
+        for k, v in retrieval_values.items():
+            assert torch.equal(got["values"][k], v.cpu()), f"retrieval rank {rank}: synced {k} differs from one process"
+        print(f"retrieval, rank {rank}: compute() synced {got['collectives']} collectives ({got['bytes']} bytes in) "
+              f"in {got['ms']:.4f} ms; values equal to one process over all {MSMARCO_QUERIES} queries, bit for bit")
+
+    # elastic resume: the two ranks' shards (world=2) folded into one process
+    def warm_ranking():
+        mc = _ranking_collection(device, CURVE_CAPACITY)
+        mc.update(ranking["auroc"].preds.values()[:BATCH], ranking["auroc"].target.values()[:BATCH])
+        mc.reset()  # AUROC latches its input mode at the first update
+        return mc
+
+    for name, make, want_states, want_values in (
+        ("report", lambda: _report_collection(device), report_gpu, report_values),
+        ("ranking", warm_ranking, ranking, want["ranking"][1]),
+        ("retrieval", lambda: _retrieval_collection(device, MSMARCO_ROWS), None, retrieval_values),
+    ):
+        target = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_checkpoint(target, os.path.join(out_dir, "ckpt", name), rank=0, world=1)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        values = target.compute()
+        if want_states is not None:
+            _assert_states_equal(target, want_states, f"{name} folded from 2 shards")
+        if name == "retrieval":
+            errs = {}
+            for k, v in want_values.items():
+                assert torch.equal(values[k], v), f"retrieval folded from 2 shards: {k} differs from one process"
+        else:
+            errs = {k: _check_values(k, values[k], v, atol[name](k)) for k, v in want_values.items()}
+        print(f"{name}: 2 shards (world=2) folded into world=1 in {load_ms:.2f} ms; "
+              + ("states equal to one process; " if want_states is not None else "")
+              + f"compute() equal to one process (max abs err {errs or 0.0})")
+        del target
+    shutil.rmtree(out_dir)
+
     cases = [r["cases"] for r in ranks]
     assert [c["num_classes"] for c in cases] == ["StateDivergenceError"] * SYNC_WORLD, cases
     assert [c["nonfinite"] for c in cases] == ["NonFiniteStateError"] * SYNC_WORLD, cases
@@ -1317,7 +1734,7 @@ def main() -> int:
 
     _phase(f"curves collection: AUROC + AveragePrecision (macro, with_capacity) + CalibrationError over "
            f"{CURVE_CLASSES} classes; binary curves on {BINARY_ROWS} tied scores")
-    _curves_phase(smi, device)
+    curves_runs = _curves_phase(smi, device)
 
     _phase("regression collection: MSE, RMSE, MAE, MSLE, MAPE, SMAPE, R2Score, ExplainedVariance, PearsonCorrcoef, "
            f"TweedieDevianceScore(power=2) over {REG_STEPS} steps of {DEPTH_PIXELS} depths")
@@ -1327,9 +1744,19 @@ def main() -> int:
            f"({CAT_CAPACITY})")
     _regression_cat_phase(device)
 
-    _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking and regression collections, "
-           "divergence cases")
-    _sync_phase(device, report_gpu, report_values, (reg_gpu, reg_values, reg_bounds))
+    _phase(f"retrieval collection: MRR, MAP, nDCG@10, P@10, R@100, FallOut@100, MAP(skip) at MS MARCO passage dev "
+           f"size ({MSMARCO_QUERIES} queries x {MSMARCO_DEPTH} candidates), list mode and with_capacity")
+    retrieval_runs = _retrieval_phase(smi, device)
+
+    _phase("checkpoint: save, verified load and a corrupted file, for the curves and retrieval collections")
+    _checkpoint_phase(device, curves_runs["capacity"]["collection"], retrieval_runs["capacity"]["collection"])
+    del curves_runs
+
+    _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking, regression and retrieval "
+           "collections, divergence cases, and an elastic resume of the ranks' shards into one process")
+    _sync_phase(device, report_gpu, report_values, (reg_gpu, reg_values, reg_bounds),
+                retrieval_runs["capacity"]["values"])
+    del retrieval_runs
 
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):

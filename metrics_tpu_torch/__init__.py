@@ -38,8 +38,19 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch.core.average import AverageMeter
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.core.checkpoint import load_checkpoint, prune_checkpoints, save_checkpoint
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.retrieval import (
+    RetrievalCollection,
+    RetrievalFallOut,
+    RetrievalMAP,
+    RetrievalMetric,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalRecall,
+)
 from metrics_tpu_torch.regression import (
     CosineSimilarity,
     ExplainedVariance,
@@ -89,9 +100,20 @@ __all__ = [
     "R2Score",
     "ROC",
     "Recall",
+    "RetrievalCollection",
+    "RetrievalFallOut",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalMetric",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalRecall",
     "SpearmanCorrcoef",
     "Specificity",
     "StatScores",
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
+    "load_checkpoint",
+    "prune_checkpoints",
+    "save_checkpoint",
 ]

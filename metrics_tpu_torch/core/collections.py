@@ -37,6 +37,7 @@ from metrics_tpu_torch.core.metric import (
     Metric,
     _check_on_error,
     _ComputeGroup,
+    _fire_checkpointer,
     _fresh_state_value,
 )
 from metrics_tpu_torch.parallel import bucketing
@@ -424,6 +425,7 @@ class MetricCollection(nn.ModuleDict):
                 if id(g) not in group_values:
                     group_values[id(g)] = self._group_forward(g, m, args, kwargs)
                 out[self._set_name(k)] = group_values[id(g)][id(m)]
+        _fire_checkpointer(self)
         return out
 
     def update(self, *args: Any, **kwargs: Any) -> None:
@@ -439,6 +441,7 @@ class MetricCollection(nn.ModuleDict):
             else:
                 handled.update(id(p) for p in g.members)
                 self._group_update(g, m, args, kwargs)
+        _fire_checkpointer(self)
 
     def _group_update(self, group: _ComputeGroup, source: Metric, args: Tuple, kwargs: Dict[str, Any]) -> None:
         """One update for the whole group: ``source`` (the group's first
@@ -463,6 +466,11 @@ class MetricCollection(nn.ModuleDict):
                 p._update_called = True
                 p._update_count = source._update_count
         self._relink_group(group, source)
+        # a sibling's accumulation advanced too (the source's own
+        # checkpointer fired inside its update)
+        for p in group.members:
+            if p is not source:
+                _fire_checkpointer(p)
 
     def _group_forward(
         self, group: _ComputeGroup, source: Metric, args: Tuple, kwargs: Dict[str, Any]
@@ -480,6 +488,8 @@ class MetricCollection(nn.ModuleDict):
             self._group_update(group, source, args, kwargs)
             return {id(p): None for p in group.members}
         accumulated = source._state
+        # no checkpointer fires off the batch state; every member's fires below
+        object.__setattr__(source, "_ckpt_suppress", True)
         try:
             source._restore(source._batch_default_state())
             group.dispatching = True
@@ -523,10 +533,14 @@ class MetricCollection(nn.ModuleDict):
         except BaseException:
             self._break_group(group)
             raise
+        finally:
+            object.__setattr__(source, "_ckpt_suppress", False)
         for p in group.members:
             if p is not source:
                 p._update_count = source._update_count
         self._relink_group(group, source)
+        for p in group.members:
+            _fire_checkpointer(p)
         return values
 
     def compute(self) -> Dict[str, Any]:
@@ -620,6 +634,26 @@ class MetricCollection(nn.ModuleDict):
         for k, m in super().items():
             m.load_state_dict(state_dict, prefix=f"{k}.")
         self._groups_stale = True
+
+    def checkpointer(
+        self,
+        directory: str,
+        *,
+        every_n_updates: int = 1,
+        keep_last: Optional[int] = None,
+        rank: Optional[int] = None,
+        world: Optional[int] = None,
+    ) -> Any:
+        """Context manager: periodic preemption-safe snapshots from
+        ``update``/``forward``, the collection-level analogue of
+        :meth:`Metric.checkpointer`. Grouped members snapshot one state per
+        compute group (siblings are recorded as aliases and re-link on
+        restore)."""
+        from metrics_tpu_torch.core.checkpoint import MetricCheckpointer
+
+        return MetricCheckpointer(
+            self, directory, every_n_updates=every_n_updates, keep_last=keep_last, rank=rank, world=world
+        )
 
     # ---------------- host sync ----------------
 

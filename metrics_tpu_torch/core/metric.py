@@ -171,6 +171,14 @@ def _copy_state_value(v: Any) -> Any:
     return list(v) if isinstance(v, list) else v
 
 
+def _fire_checkpointer(owner: Any) -> None:
+    """Tell ``owner``'s active checkpointer (``Metric.checkpointer``,
+    ``MetricCollection.checkpointer``) that its accumulation advanced."""
+    ckpt = owner.__dict__.get("_auto_checkpointer")
+    if ckpt is not None:
+        ckpt.after_update(owner)
+
+
 def _raise_on_catbuffer_overflow(state: Dict[str, Any], label: str) -> None:
     """An update must not go on accumulating into a CatBuffer that carries the
     overflow flag of a loaded JAX snapshot: its rows are corrupt. (The JAX
@@ -286,6 +294,10 @@ class Metric(nn.Module):
     #: The compute group this metric shares state with (set by
     #: ``MetricCollection``), or ``None``.
     _compute_group: Optional[_ComputeGroup] = None
+
+    #: The active :class:`~metrics_tpu_torch.core.checkpoint.MetricCheckpointer`
+    #: of :meth:`checkpointer`, or ``None``.
+    _auto_checkpointer: Optional[Any] = None
 
     #: Instance attributes an update writes as side effects (an input-mode
     #: latch, an inferred ``num_classes``): after a group dispatch the
@@ -470,37 +482,44 @@ class Metric(nn.Module):
         # accumulation is set aside: the merge below appends into it in place
         self._group_detach_if_stray()
         accumulated = self._state
-        self._restore(self._batch_default_state())
-        self.update(*args, **kwargs)
-        batch_state = self._state
-
-        # the compute wrapper syncs the batch value only if dist_sync_on_step
-        self._to_sync = self.dist_sync_on_step
-        self._computed = None
+        # the auto-checkpointer must not fire off the transient batch state
+        # the inner update writes; it snapshots the merged accumulation below
+        object.__setattr__(self, "_ckpt_suppress", True)
         try:
-            self._forward_cache = self.compute()
-        finally:
-            self._to_sync = True
-        self._computed = None
-        if self.dist_sync_on_step:
-            batch_state = self._state  # the sync context restored the local batch state
-
-        if self._can_merge():
-            try:
-                if type(self).merge_states is Metric.merge_states:
-                    # the accumulation set aside above has no other holder:
-                    # its CatBuffers take the batch rows in place (an append
-                    # that would overflow raises before it writes)
-                    merged = self._merge_states(accumulated, batch_state, in_place=True)
-                else:
-                    merged = self.merge_states(accumulated, batch_state)
-            except Exception:
-                self._restore(accumulated)
-                raise
-            self._restore(merged)
-        else:
-            self._restore(accumulated)
+            self._restore(self._batch_default_state())
             self.update(*args, **kwargs)
+            batch_state = self._state
+
+            # the compute wrapper syncs the batch value only if dist_sync_on_step
+            self._to_sync = self.dist_sync_on_step
+            self._computed = None
+            try:
+                self._forward_cache = self.compute()
+            finally:
+                self._to_sync = True
+            self._computed = None
+            if self.dist_sync_on_step:
+                batch_state = self._state  # the sync context restored the local batch state
+
+            if self._can_merge():
+                try:
+                    if type(self).merge_states is Metric.merge_states:
+                        # the accumulation set aside above has no other holder:
+                        # its CatBuffers take the batch rows in place (an append
+                        # that would overflow raises before it writes)
+                        merged = self._merge_states(accumulated, batch_state, in_place=True)
+                    else:
+                        merged = self.merge_states(accumulated, batch_state)
+                except Exception:
+                    self._restore(accumulated)
+                    raise
+                self._restore(merged)
+            else:
+                self._restore(accumulated)
+                self.update(*args, **kwargs)
+        finally:
+            object.__setattr__(self, "_ckpt_suppress", False)
+        _fire_checkpointer(self)
         return self._forward_cache
 
     def update(self, *args: Any, **kwargs: Any) -> None:  # noqa: D102 - abstract
@@ -874,8 +893,10 @@ class Metric(nn.Module):
                     str(default.buffer.dtype), tuple(default.buffer.shape[1:]))
                 parts.append((name, "catbuf", default.capacity, item, fx_tag))
             else:
-                host = default.detach().cpu()
-                parts.append((name, "leaf", str(host.dtype), tuple(host.shape), host.numpy().tobytes(), fx_tag))
+                host = default.detach().cpu().contiguous()
+                # raw bytes through uint8: numpy has no bfloat16
+                raw = host.reshape(-1).view(torch.uint8).numpy().tobytes()
+                parts.append((name, "leaf", str(host.dtype), tuple(host.shape), raw, fx_tag))
         return tuple(parts)
 
     def update_identity(self) -> Optional[Tuple]:
@@ -929,6 +950,31 @@ class Metric(nn.Module):
     # ------------------------------------------------------------------
     # serialization
     # ------------------------------------------------------------------
+
+    def checkpointer(
+        self,
+        directory: str,
+        *,
+        every_n_updates: int = 1,
+        keep_last: Optional[int] = None,
+        rank: Optional[int] = None,
+        world: Optional[int] = None,
+    ) -> Any:
+        """Context manager: periodic preemption-safe snapshots from ``update``.
+
+        While the context is active, every ``every_n_updates``-th
+        ``update``/``forward`` atomically snapshots this metric's rank-local
+        state into ``directory`` (``core/checkpoint.py``: CRC-verified
+        manifest, write-temp → fsync → rename, ``keep_last`` retention), and
+        a clean exit flushes the tail. Resume with
+        :func:`~metrics_tpu_torch.core.checkpoint.load_checkpoint`, at the same
+        world size or elastically at another.
+        """
+        from metrics_tpu_torch.core.checkpoint import MetricCheckpointer
+
+        return MetricCheckpointer(
+            self, directory, every_n_updates=every_n_updates, keep_last=keep_last, rank=rank, world=world
+        )
 
     def persistent(self, mode: bool = False) -> None:
         """Set whether every state is written by ``state_dict()``."""
@@ -1200,6 +1246,10 @@ def _wrap_update(update: Callable) -> Callable:
                 flag = _update_nonfinite_flag(self._state, (args, kwargs), prev_list_lens, self._device)
                 self._restore({NONFINITE_STATE: torch.maximum(getattr(self, NONFINITE_STATE), flag)})
         _raise_on_catbuffer_overflow(self._state, type(self).__name__)
+        if not self.__dict__.get("_ckpt_suppress", False):
+            # periodic durability (Metric.checkpointer); forward suppresses
+            # this for its batch-state update and fires once it has merged
+            _fire_checkpointer(self)
         return out
 
     wrapped_func._wrapped = True  # type: ignore[attr-defined]

@@ -1,0 +1,15 @@
+from metrics_tpu_torch.functional.retrieval.average_precision import retrieval_average_precision
+from metrics_tpu_torch.functional.retrieval.fall_out import retrieval_fall_out
+from metrics_tpu_torch.functional.retrieval.ndcg import retrieval_normalized_dcg
+from metrics_tpu_torch.functional.retrieval.precision import retrieval_precision
+from metrics_tpu_torch.functional.retrieval.recall import retrieval_recall
+from metrics_tpu_torch.functional.retrieval.reciprocal_rank import retrieval_reciprocal_rank
+
+__all__ = [
+    "retrieval_average_precision",
+    "retrieval_fall_out",
+    "retrieval_normalized_dcg",
+    "retrieval_precision",
+    "retrieval_recall",
+    "retrieval_reciprocal_rank",
+]

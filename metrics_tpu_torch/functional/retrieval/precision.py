@@ -1,0 +1,31 @@
+"""Single-query precision@k.
+
+Counterpart of ``metrics_tpu/functional/retrieval/precision.py``.
+"""
+from typing import Optional
+
+import torch
+
+from metrics_tpu_torch.ops.segment import descending_key
+from metrics_tpu_torch.utils.checks import _check_retrieval_functional_inputs, _check_retrieval_k
+
+
+def retrieval_precision(preds: torch.Tensor, target: torch.Tensor, k: Optional[int] = None) -> torch.Tensor:
+    """Fraction of relevant documents among the top ``k`` retrieved.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import retrieval_precision
+        >>> preds = torch.tensor([0.2, 0.3, 0.5])
+        >>> target = torch.tensor([True, False, True])
+        >>> round(float(retrieval_precision(preds, target, k=2)), 4)
+        0.5
+    """
+    preds, target = _check_retrieval_functional_inputs(preds, target)
+    if k is None:
+        k = preds.shape[-1]
+    _check_retrieval_k(k)
+    if not bool(target.sum()):
+        return torch.tensor(0.0, device=preds.device)
+    relevant = target[torch.argsort(descending_key(preds), stable=True)][:k].sum().to(torch.float32)
+    return relevant / k

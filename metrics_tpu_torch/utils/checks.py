@@ -297,3 +297,64 @@ def _input_mode(preds: torch.Tensor, target: torch.Tensor) -> DataType:
     if preds.dtype in (torch.float16, torch.bfloat16):
         preds = preds.to(torch.float32)
     return _check_classification_inputs(preds, target, threshold=0.5, num_classes=None, multiclass=None, top_k=None)
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dtype and value checks of retrieval inputs; returns flat float32
+    ``preds`` and flat ``target`` (float32 if floating, else int32, as in the
+    JAX package). The binary check reads the data on the host."""
+    if not (target.is_floating_point() or target.dtype == torch.bool or _is_integer(target)):
+        raise ValueError("`target` must be a tensor of booleans, integers or floats")
+    if not _is_floating(preds):
+        raise ValueError("`preds` must be a tensor of floats")
+    if not allow_non_binary_target and target.numel():
+        flat = target.reshape(-1).to(torch.float32 if target.is_floating_point() else torch.int64)
+        lo, hi = torch.stack(torch.aminmax(flat)).tolist()  # one host read
+        if int(hi) > 1 or int(lo) < 0:
+            raise ValueError("`target` must contain `binary` values")
+    target = target.to(torch.float32 if _is_floating(target) else torch.int32).reshape(-1)
+    return preds.to(torch.float32).reshape(-1), target
+
+
+def _is_integer(x: torch.Tensor) -> bool:
+    return not (x.is_floating_point() or x.is_complex() or x.dtype == torch.bool)
+
+
+def _check_retrieval_functional_inputs(
+    preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` must be of the same shape")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("`preds` and `target` must be non-empty and non-scalar tensors")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: torch.Tensor, preds: torch.Tensor, target: torch.Tensor, allow_non_binary_target: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Shape and dtype checks of ``(indexes, preds, target)``; returns them
+    flat, with the query ids in int32.
+
+    Query ids are ids, not counts: they stay int32, as in the JAX package, so
+    the ids, the padding sentinel (``iinfo(int32).max``, ``ops/segment.py``)
+    and its error are the JAX package's. An id of 2**31 or above wraps as
+    the JAX package's ``astype(int32)`` wraps it.
+    """
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` must be of the same shape")
+    if indexes.numel() == 0 or indexes.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    if not _is_integer(indexes):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.to(torch.int32).reshape(-1), preds, target
+
+
+def _check_retrieval_k(k: Optional[int]) -> None:
+    """Shared top-k validation for retrieval metrics (module + functional
+    layers); rejects bools, which python counts as ints."""
+    if k is not None and (isinstance(k, bool) or not isinstance(k, int) or k <= 0):
+        raise ValueError("`k` has to be a positive integer or None")

@@ -2,10 +2,11 @@
 
 Counterpart of ``metrics_tpu/utils/data.py``: the state reducers
 (``dim_zero_*``), one-hot encoding, top-k binarization, class inference, the
-confusion matrix's scatter count and the threshold grid of the binned
-metrics.
+confusion matrix's scatter count, the threshold grid of the binned metrics,
+the host-side query grouping and ``apply_to_collection``.
 """
-from typing import TYPE_CHECKING, List, Optional, Union
+from collections.abc import Mapping
+from typing import TYPE_CHECKING, Any, Callable, List, Optional, Union
 
 import torch
 
@@ -129,3 +130,49 @@ def _linspace_like_reference(num: int) -> torch.Tensor:
     step = torch.tensor(1.0, dtype=torch.float32) / torch.tensor(float(num - 1), dtype=torch.float32)
     head = torch.arange(num - 1, dtype=torch.float32) * step
     return torch.cat([head, torch.ones(1, dtype=torch.float32)])
+
+
+def get_group_indexes(indexes: torch.Tensor) -> List[torch.Tensor]:
+    """Group row positions by query id (host-side, ragged output), in the
+    order each id first appears; int32 positions on the CPU, as the JAX
+    package's. The retrieval metrics group on the device instead
+    (``ops/segment.py``)."""
+    res: dict = {}
+    for i, idx in enumerate(indexes.reshape(-1).tolist()):
+        res.setdefault(idx, []).append(i)
+    return [torch.tensor(x, dtype=torch.int32) for x in res.values()]
+
+
+def apply_to_collection(
+    data: Any,
+    dtype: Union[type, tuple],
+    function: Callable,
+    *args: Any,
+    wrong_dtype: Optional[Union[type, tuple]] = None,
+    **kwargs: Any,
+) -> Any:
+    """Recursively apply ``function`` to all ``dtype`` leaves of a collection
+    (mappings, namedtuples, lists, tuples and CatBuffers; a CatBuffer's count
+    and flag are host values, passed to ``function`` as the JAX package
+    passes its count and flag arrays when they match ``dtype``)."""
+    from metrics_tpu_torch.core.cat_buffer import CatBuffer
+
+    def recurse(d: Any) -> Any:
+        return apply_to_collection(d, dtype, function, *args, wrong_dtype=wrong_dtype, **kwargs)
+
+    if isinstance(data, dtype) and (wrong_dtype is None or not isinstance(data, wrong_dtype)):
+        return function(data, *args, **kwargs)
+    if isinstance(data, CatBuffer):
+        return CatBuffer(
+            data.capacity,
+            None if data.buffer is None else recurse(data.buffer),
+            recurse(data.count),
+            recurse(data.overflowed),
+        )
+    if isinstance(data, Mapping):
+        return type(data)({k: recurse(v) for k, v in data.items()})
+    if isinstance(data, tuple) and hasattr(data, "_fields"):  # namedtuple
+        return type(data)(*(recurse(d) for d in data))
+    if isinstance(data, (list, tuple)):
+        return type(data)(recurse(d) for d in data)
+    return data

@@ -59,3 +59,22 @@ class StateDictMismatchError(MetricsTPUUserError):
     Raised before any state is mutated, listing both the declared states the
     snapshot lacks and the snapshot keys no declared state claims.
     """
+
+
+class CheckpointError(RuntimeError):
+    """Base class for durable metric-checkpoint failures.
+
+    Covers everything that can go wrong between a snapshot directory and a
+    resumed metric: no usable snapshot, unsupported manifest versions, and
+    (via :class:`CheckpointCorruptError`) byte-level corruption.
+    """
+
+
+class CheckpointCorruptError(CheckpointError):
+    """A checkpoint file failed integrity verification.
+
+    Raised when any byte-level check fails — bad magic, header or per-leaf
+    CRC mismatch, truncation, impossible offsets. The loader verifies the
+    whole file *before* mutating any metric state, so a corrupt checkpoint
+    can never partially resume: the typed error is the only outcome.
+    """

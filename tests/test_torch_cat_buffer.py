@@ -9,7 +9,13 @@ its host sync of a CatBuffer is tested on two gloo ranks in
 through a JAX snapshot; those cases here set it on the JAX side by hand.
 
 Contents and counts compare exactly; AUROC and AP values at 1e-6 (the port
-ranks in exact integers, the JAX package sums ranks in float32).
+ranks in exact integers, the JAX package sums ranks in float32). The five
+retrieval cases (at the end) hold RetrievalMAP and RetrievalCollection values
+at 1e-6, the JAX test's own bound: float32 means of per-query float32 sums
+of under 30 terms, over at most 23 queries, summed in another order
+(log2(30) + log2(23) = 9.4 roundings of 2**-24 a side, 1.1e-6 at most, and
+the values are below 1). List and capacity mode of the port agree bit for
+bit where they see the same segments.
 """
 import pickle
 
@@ -435,3 +441,115 @@ def test_overflowed_reference_snapshot_stays_loud():
     clean = _auroc(CAPACITY)
     clean.load_state_dict(own)
     assert not clean.preds.overflowed
+
+
+# ---------------------------------------------------------------------------
+# retrieval over CatBuffer states: the padded query grouping
+# (``ops/segment.py`` ``valid`` mode) of ``num_queries`` + ``with_capacity``
+# ---------------------------------------------------------------------------
+
+RETRIEVAL_ATOL = 1e-6
+
+
+def _retrieval_data(n=200, n_queries=23, seed=11):
+    r = np.random.RandomState(seed)
+    return r.rand(n).astype(np.float32), r.randint(0, 2, n), r.randint(0, n_queries, n)
+
+
+def test_retrieval_map_with_capacity():
+    idx = rng.randint(0, 10, (NUM_BATCHES, BATCH_SIZE))
+    m = port.RetrievalMAP(device="cpu").with_capacity(NUM_BATCHES * BATCH_SIZE)
+    m_list = port.RetrievalMAP(device="cpu")
+    m_ref = ref.RetrievalMAP()
+    for i in range(NUM_BATCHES):
+        m.update(*_t(i), torch.from_numpy(idx[i]))
+        m_list.update(*_t(i), torch.from_numpy(idx[i]))
+        m_ref.update(*_j(i), jnp.asarray(idx[i]))
+    assert isinstance(m.preds, CatBuffer)
+    assert torch.equal(m.compute(), m_list.compute())  # the same rows, the same bits
+    np.testing.assert_allclose(float(m.compute()), float(m_ref.compute()), atol=RETRIEVAL_ATOL)
+
+
+def test_retrieval_catbuffer_padded_compute_matches_list_mode():
+    """The padded grouping (no jit here: the same ``compute``) equals the
+    list-state value, with a partially-filled buffer (padding rows must not
+    leak into any query's ranking or the query mean); and the JAX package's
+    padded value."""
+    preds, target, idx = _retrieval_data()
+    m_list = port.RetrievalMAP(device="cpu")
+    m_list.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(idx))
+    m = port.RetrievalMAP(num_queries=32, device="cpu").with_capacity(512)  # 200 of 512 filled
+    m.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(idx))
+    np.testing.assert_allclose(float(m.compute()), float(m_list.compute()), atol=RETRIEVAL_ATOL)
+    m_ref = ref.RetrievalMAP(num_queries=32).with_capacity(512)
+    m_ref.update(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(idx))
+    np.testing.assert_allclose(float(m.compute()), float(m_ref.compute()), atol=RETRIEVAL_ATOL)
+
+
+def test_retrieval_catbuffer_sync_straddling_queries(monkeypatch):
+    """Query groups straddling rank boundaries (four ranks on threads): only
+    the post-gather global grouping merges them; the value equals the
+    single-process oracle."""
+    from tests.helpers.torch_world import TorchLockstepWorld
+
+    world_size, per_rank = 4, 16
+    preds, _, _ = _retrieval_data(world_size * per_rank)
+    gpos = np.arange(world_size * per_rank)
+    target, idx = (gpos % 3 == 0).astype(np.int64), gpos // 5
+    world = TorchLockstepWorld(world_size).install(monkeypatch)
+
+    def body(rank):
+        m = port.RetrievalMAP(num_queries=world_size * per_rank // 5 + 1, device="cpu").with_capacity(per_rank)
+        rows = slice(rank * per_rank, (rank + 1) * per_rank)
+        m.update(torch.from_numpy(preds[rows]), torch.from_numpy(target[rows]), torch.from_numpy(idx[rows]))
+        return float(m.compute())
+
+    got = world.run(body)
+    oracle = ref.RetrievalMAP()
+    oracle.update(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(idx))
+    for value in got:
+        np.testing.assert_allclose(value, float(oracle.compute()), atol=RETRIEVAL_ATOL)
+
+
+def test_retrieval_catbuffer_overflow_poisons_map():
+    """The overflow flag reaches the port through a JAX snapshot whose
+    buffer overflowed inside jit (set on the JAX side by hand, as in the
+    cases above): the padded compute warns and returns NaN, as the JAX
+    package's does."""
+    p, t, i = _retrieval_data()
+    m_ref = ref.RetrievalMAP(num_queries=32).with_capacity(512)
+    m_ref.update(jnp.asarray(p), jnp.asarray(t), jnp.asarray(i))
+    for name in ("indexes", "preds", "target"):
+        m_ref._state[name].overflowed = jnp.asarray(True)
+    m_ref.persistent(True)
+    converted = state_dict_from_reference(m_ref.state_dict(), device="cpu")
+    m = port.RetrievalMAP(num_queries=32, device="cpu").with_capacity(512)
+    m.load_state_dict(converted)
+    assert m.preds.overflowed
+    with pytest.warns(UserWarning, match="CatBuffer overflowed"):
+        assert torch.isnan(m.compute())
+    with pytest.warns(UserWarning, match="CatBuffer overflowed"):
+        assert np.isnan(float(m_ref.compute()))
+
+
+def test_retrieval_collection_catbuffer_compute():
+    preds, target, idx = _retrieval_data()
+
+    def members(pkg, **kw):
+        return {"map": pkg.RetrievalMAP(**kw), "mrr": pkg.RetrievalMRR(**kw), "p": pkg.RetrievalPrecision(k=3, **kw)}
+
+    # the port's padded collection against its eager list-state twin, and
+    # against the JAX package's padded collection (the shapes of the case
+    # above, so the JAX side compiles little)
+    eager = port.RetrievalCollection(members(port, device="cpu"), device="cpu")
+    eager.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(idx))
+    expected = eager.compute()
+    coll = port.RetrievalCollection(members(port, device="cpu"), num_queries=32, device="cpu").with_capacity(512)
+    coll.update(torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(idx))
+    got = coll.compute()
+    coll_ref = ref.RetrievalCollection(members(ref), num_queries=32).with_capacity(512)
+    coll_ref.update(jnp.asarray(preds), jnp.asarray(target), jnp.asarray(idx))
+    want = coll_ref.compute()
+    for k, v in expected.items():
+        np.testing.assert_allclose(float(got[k]), float(v), atol=RETRIEVAL_ATOL, err_msg=k)
+        np.testing.assert_allclose(float(got[k]), float(want[k]), atol=RETRIEVAL_ATOL, err_msg=k)

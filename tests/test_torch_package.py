@@ -121,6 +121,20 @@ DOCTEST_MODULES = [
     "metrics_tpu_torch.functional.regression.spearman",
     "metrics_tpu_torch.functional.regression.symmetric_mean_absolute_percentage_error",
     "metrics_tpu_torch.functional.regression.tweedie_deviance",
+    "metrics_tpu_torch.core.checkpoint",
+    "metrics_tpu_torch.retrieval.collection",
+    "metrics_tpu_torch.retrieval.mean_average_precision",
+    "metrics_tpu_torch.retrieval.mean_reciprocal_rank",
+    "metrics_tpu_torch.retrieval.retrieval_fallout",
+    "metrics_tpu_torch.retrieval.retrieval_ndcg",
+    "metrics_tpu_torch.retrieval.retrieval_precision",
+    "metrics_tpu_torch.retrieval.retrieval_recall",
+    "metrics_tpu_torch.functional.retrieval.average_precision",
+    "metrics_tpu_torch.functional.retrieval.fall_out",
+    "metrics_tpu_torch.functional.retrieval.ndcg",
+    "metrics_tpu_torch.functional.retrieval.precision",
+    "metrics_tpu_torch.functional.retrieval.recall",
+    "metrics_tpu_torch.functional.retrieval.reciprocal_rank",
 ]
 
 
@@ -167,13 +181,23 @@ DEFAULT_DEVICE_CASES = {
     "PearsonCorrcoef": lambda **kw: port.PearsonCorrcoef(**kw),
     "SpearmanCorrcoef": lambda **kw: port.SpearmanCorrcoef(**kw).with_capacity(64),
     "CosineSimilarity": lambda **kw: port.CosineSimilarity(reduction="mean", **kw),
+    "RetrievalMAP": lambda **kw: port.RetrievalMAP(**kw),
+    "RetrievalMRR": lambda **kw: port.RetrievalMRR(**kw),
+    "RetrievalFallOut": lambda **kw: port.RetrievalFallOut(k=10, **kw),
+    "RetrievalNormalizedDCG": lambda **kw: port.RetrievalNormalizedDCG(k=10, **kw),
+    "RetrievalPrecision": lambda **kw: port.RetrievalPrecision(k=10, **kw),
+    "RetrievalRecall": lambda **kw: port.RetrievalRecall(k=100, **kw),
+    # members are configuration: the collection's own device counts
+    "RetrievalCollection": lambda **kw: port.RetrievalCollection(
+        {"map": port.RetrievalMAP(device="cpu")}, num_queries=8, **kw).with_capacity(64),
     # a composite takes its operands' device
     "CompositionalMetric": lambda **kw: port.Precision(**kw) * port.Recall(**kw) + 1.0,
 }
 
 
 def test_every_exported_metric_has_a_default_device_case():
-    metrics = {name for name in port.__all__ if name not in ("Metric", "MetricCollection", "CatBuffer")}
+    metrics = {name for name in port.__all__ if name[0].isupper()} - {
+        "Metric", "MetricCollection", "CatBuffer", "RetrievalMetric"}
     assert metrics - {"BinnedPrecisionRecallCurve", "BinnedRecallAtFixedPrecision"} == set(DEFAULT_DEVICE_CASES)
 
 
@@ -185,3 +209,28 @@ def test_default_device_is_cuda(make):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert make(device="cpu").device == torch.device("cpu")
+
+
+def test_checkpoint_functions_are_exported():
+    from metrics_tpu_torch.core import checkpoint
+
+    functions = {name for name in port.__all__ if not name[0].isupper()}
+    assert functions == {"load_checkpoint", "prune_checkpoints", "save_checkpoint"}
+    assert all(getattr(port, name) is getattr(checkpoint, name) for name in functions)
+
+
+def test_load_checkpoint_restores_onto_the_metric_device(tmp_path):
+    """The restored leaves sit on the metric's own device: the card when
+    there is one, the host otherwise; a CatBuffer state with its buffer."""
+    src = port.RetrievalMAP(device="cpu").with_capacity(16)
+    src.update(torch.tensor([0.5, 0.2, 0.9]), torch.tensor([1, 0, 1]), indexes=torch.tensor([0, 0, 1]))
+    port.save_checkpoint(src, str(tmp_path), rank=0, world=1)
+    for device in (["cuda"] if torch.cuda.is_available() else []) + ["cpu"]:
+        m = port.load_checkpoint(port.RetrievalMAP(device=device).with_capacity(16), str(tmp_path), rank=0, world=1)
+        assert all(v.buffer.device.type == device for v in m._state.values())
+        assert float(m.compute()) == float(src.compute())
+        acc = port.Accuracy(device=device)
+        acc.update(torch.tensor([1, 0]).to(device), torch.tensor([1, 1]).to(device))
+        port.save_checkpoint(acc, str(tmp_path / device), rank=0, world=1)
+        restored = port.load_checkpoint(port.Accuracy(device=device), str(tmp_path / device), rank=0, world=1)
+        assert all(v.device.type == device for v in restored._state.values())
