@@ -61,13 +61,27 @@
    (device-to-host copy, CRC, write + fsync) and load, and holds a file with
    one flipped payload byte to ``CheckpointCorruptError`` with the target's
    states unchanged;
-13. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
+13. image-fid: FID (buffered and ``streaming=True``), KID (100 subsets of
+   1,000) and IS (10 splits) through the fidelity Inception-v3 (random
+   weights) at CIFAR-10 FID-10k size, 40 steps of 250 uint8 32x32 images
+   a side; the features of 16 images against the port on the CPU with
+   PyTorch's default TF32 flags and with them off (and, to show the bound
+   tells them apart, without the float32 guard); images/s in float32 and
+   bfloat16; an update step profiled; each ``compute()`` timed, profiled and
+   held against the same ``compute()`` on the CPU and against the same
+   states' float64 FID;
+14. image-lpips: LPIPS with AlexNet and VGG16 towers on 10,000 pairs of
+   64x64 patches, pairs/s, 32 pairs against the CPU; image-ssim: PSNR and
+   streaming SSIM on 100 DIV2K-size [3, 1356, 2040] images, the window
+   convolution timed, the first 2 steps against the CPU and the float32
+   counts against the JAX package's rounding, ``image_gradients`` once;
+15. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
    gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
    report batches, of the curves batches (AUROC + AveragePrecision with
    ``with_capacity``), of the regression batches (PearsonCorrcoef's
    ``dist_reduce_fx=None`` states gather to ``[2]`` and fold) and of the
-   retrieval queries, the collections sync through one health header and one
-   bucketed plan, and the synced values on both ranks are held against one
+   retrieval queries, and a streaming FID of half the feature batches each;
+   the collections sync through one health header and one bucketed plan, and the synced values on both ranks are held against one
    process on the card over all batches; counts the collectives of the fused
    sync against the per-leaf sync and times both; then drives three
    divergence cases on the two ranks (``num_classes`` 1000 against 1001, the
@@ -76,7 +90,7 @@
    each rank saves its shard (``world=2``) of the report, ranking and
    retrieval collections, and the main process folds the two into one
    (``world=1``), held against the one-process runs: an elastic resume;
-14. profiles a step of each collection (the report collection with and
+16. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -171,9 +185,75 @@ MSMARCO_QID_RANGE = 1_102_432
 # may err in opposite directions: 2 * (12.8 + 3) * 2**-24 = 1.9e-6
 RETRIEVAL_ATOL = 2 * (float(np.log2(MSMARCO_QUERIES)) + 3) * 2.0 ** -24
 
+# sync phase's streaming FID: 8 steps of [256, 2048] features a side, half
+# on each rank. Kahan-corrected sums are within a few ulps of the exact sum
+# whatever the order, so two ranks' against one process within 1e-6 of the
+# largest (non-negative features: no cancellation)
+FID_SYNC_STEPS, FID_SYNC_BATCH, FID_SYNC_DIM, FID_SYNC_RTOL = 8, 256, 2048, 1e-6
+# image-fid phase: a CIFAR-10 GAN's evaluation against CIFAR-10's test
+# split, torch-fidelity's FID-10k: 10,000 real and 10,000 generated uint8
+# [3, 32, 32] images in 40 update steps of 250 a side, resized to 299 inside
+# the extractor; KID with torch-fidelity's 100 subsets of 1,000, IS with 10
+# splits on the generated images
+CIFAR_IMAGES, CIFAR_STEP = 10_000, 250
+CIFAR_STEPS = CIFAR_IMAGES // CIFAR_STEP  # 40
+KID_SUBSETS, KID_SUBSET_SIZE, IS_SPLITS = 100, 1000, 10
+FEATURE_CHECK_IMAGES = 16
+# Inception features, card vs the port on the CPU: ~95 float32 convolutions
+# deep, each a sum of up to 4,032 products (log2 = 12 roundings of 2**-24)
+# that cuDNN and oneDNN order differently, some by transforms (Winograd,
+# FFT) of their own: 1e-4 of the tap's largest value, ten times the bound
+# the port's CPU forward holds against the JAX package
+# (tests/test_torch_inception.py). A TF32 forward (10-bit mantissas, 2**-11
+# a product) misses it by far.
+FEATURE_RTOL = 1e-4
+# FID = |mu1 - mu2|^2 + tr S1 + tr S2 - 2 tr sqrt(S1 S2): each float32 path
+# (card or CPU; buffered or Kahan-streamed moments; eigh or Newton-Schulz)
+# is held against the same states' float64 value with the JAX package's bar
+# for its float32 trace term (rtol 2e-3, atol 1e-3 of tr sqrt(S1 S2),
+# tests/image/test_fid_precision.py), which enters FID twice; two float32
+# paths against each other within twice that
+FID_SQRT_RTOL, FID_SQRT_ATOL = 2e-3, 1e-3
+# KID, card vs CPU: every kernel value is (gamma <f, g> + 1)^3, a dot of 2048
+# float32 terms (11 roundings) cubed (33), averaged over 10^6 entries (20
+# more); KID is a difference of three such means: 3 * 64 * 2**-24 of the
+# kernels' size, 1.2e-5
+KID_KERNEL_RTOL = 3 * 64 * 2.0 ** -24
+# IS, card vs CPU: softmax, log and means over 1,000 rows of 1008 logits
+# in float32, exp of a mean KL of size ~1: 1e-5
+IS_ATOL = 1e-5
+# image-lpips phase: BAPPS (the LPIPS paper's data) patch size, 64x64 in
+# [-1, 1]; 10,000 pairs in 40 steps of 250; the CPU check on the first 32
+# pairs of the first step (VGG16 on the host takes ~6 s for a whole step)
+BAPPS_PAIRS, BAPPS_STEP, BAPPS_HW, LPIPS_CHECK_PAIRS = 10_000, 250, 64, 32
+# distances of size ~0.1-1: sums over 5 taps of spatial means of
+# unit-normalised squared differences of convolution outputs, 5 (AlexNet)
+# or 13 (VGG16) float32 layers deep in another order on each side
+LPIPS_RTOL = 1e-4
+# image-ssim phase: DIV2K's validation split at its full 2K resolution, 100
+# images cut to [3, 1356, 2040] (the smallest crop every image admits), 25
+# steps of 4, uint8 high-resolution images and a reconstruction 8 levels off
+DIV2K_IMAGES, DIV2K_STEP, DIV2K_HW = 100, 4, (1356, 2040)
+DIV2K_STEPS = DIV2K_IMAGES // DIV2K_STEP  # 25
+SSIM_CHECK_STEPS = 2
+# SSIM and PSNR card vs CPU over 2 steps. Each window sum of 121 products
+# rounds ~log2(121) = 7 times on either side (cuDNN and oneDNN order them
+# differently); sigma = E[x^2] - mu^2 cancels, (1/3 + 1/4) / (1/12) = 7 times
+# for these uniform pixels, so sigma and sigma_xy carry 49 roundings,
+# mu^2 and mu_x mu_y 14; the index (luminance factor ~2 * 14, structure
+# factor ~2 * 49), systematic at worst, then a sum of 65,585,120 values
+# (26 roundings) and the division: 2 * (28 + 98 + 26 + 4) * 2**-24 = 1.9e-5.
+# PSNR is 10 log10 of a float32 ratio (4.3 dB per unit of relative error)
+# whose squared-error sum rounds 26 + 2 times each side
+SSIM_ATOL = 2 * (28 + 98 + 26 + 4) * 2.0 ** -24
+PSNR_ATOL = 4.35 * 2 * (25 + 2) * 2.0 ** -24
+
+
+_START = time.perf_counter()
+
 
 def _phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== [{time.perf_counter() - _START:.1f} s] {name}", flush=True)
 
 
 def _binned_inputs(n, c, t, seed, device, unsorted=False, target_dtype=np.float32, nan_thresholds=False,
@@ -1222,6 +1302,22 @@ def _synced_rows(mc):
             for k, m in mc.items() for n, v in m._state.items()}
 
 
+def _fid_sync_data():
+    """Inception-like features (non-negative, as after a relu and an average
+    pool) for the sync phase's streaming FID, from RandomState(10)."""
+    rng = np.random.RandomState(10)
+    shape = (FID_SYNC_STEPS, FID_SYNC_BATCH, FID_SYNC_DIM)
+    real = np.abs(rng.standard_normal(shape)).astype(np.float32)
+    fake = (np.abs(rng.standard_normal(shape)) * 1.1 + 0.05).astype(np.float32)
+    return torch.from_numpy(real), torch.from_numpy(fake)
+
+
+def _fid_corrected(fid):
+    """A streaming FID's Kahan-corrected sums (``total - comp``) on the host."""
+    return {f"{side}_{base}": (getattr(fid, f"{side}_{base}") - getattr(fid, f"{side}_{base}_comp")).cpu()
+            for side in ("real", "fake") for base in ("sum", "outer")}
+
+
 def _sync_rank(rank, world, port_no, out_dir, device):
     """One rank of the sync phase, a process of its own, with its states on
     ``device`` (``cuda:0`` for every rank)."""
@@ -1308,6 +1404,23 @@ def _sync_rank(rank, world, port_no, out_dir, device):
                             "bytes": sum(gathers), "values": {k: v.cpu() for k, v in values.items()}}
         save_checkpoint(rc, os.path.join(out_dir, "ckpt", "retrieval"), step=0)
         del rc
+
+        # streaming FID (a callable extractor): half of the feature batches
+        from metrics_tpu_torch import FID
+
+        real, fake = _fid_sync_data()
+        share = slice(rank * FID_SYNC_STEPS // world, (rank + 1) * FID_SYNC_STEPS // world)
+        fid = FID(lambda x: x, feature_dim=FID_SYNC_DIM, streaming=True, device=device)
+        for r, f in zip(real[share].to(device), fake[share].to(device)):
+            fid.update(r, real=True)
+            fid.update(f, real=False)
+        fid.sync()
+        out["fid"] = {"corrected": _fid_corrected(fid), "n": [float(fid.real_n), float(fid.fake_n)]}
+        fid.unsync()
+        gathers.clear()
+        out["fid"]["value"] = float(fid.compute())
+        out["fid"]["collectives"] = len(gathers)
+        del fid, real, fake
 
         # three divergence cases, every one decided by the health header
         gen = torch.Generator().manual_seed(10 + rank)
@@ -1436,6 +1549,28 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
         print(f"retrieval, rank {rank}: compute() synced {got['collectives']} collectives ({got['bytes']} bytes in) "
               f"in {got['ms']:.4f} ms; values equal to one process over all {MSMARCO_QUERIES} queries, bit for bit")
 
+    from metrics_tpu_torch import FID
+
+    real, fake = _fid_sync_data()
+    one = FID(lambda x: x, feature_dim=FID_SYNC_DIM, streaming=True, device=device)
+    for r, f in zip(real.to(device), fake.to(device)):
+        one.update(r, real=True)
+        one.update(f, real=False)
+    want_corrected, want_value, parts = _fid_corrected(one), float(one.compute()), _fid_parts(one)
+    for rank, result in enumerate(ranks):
+        got = result["fid"]
+        assert got["n"] == [float(one.real_n), float(one.fake_n)], got["n"]
+        errs = {}
+        for k, v in want_corrected.items():
+            errs[k] = float((got["corrected"][k] - v).abs().max() / v.abs().max())
+            assert errs[k] <= FID_SYNC_RTOL, f"fid rank {rank}: synced {k} relative diff {errs[k]}"
+        assert abs(got["value"] - want_value) <= 2 * parts["bar"], (got["value"], want_value, parts)
+        print(f"streaming FID, rank {rank}: {FID_SYNC_STEPS // SYNC_WORLD} of {FID_SYNC_STEPS} steps of "
+              f"[{FID_SYNC_BATCH}, {FID_SYNC_DIM}] features a side; synced Kahan-corrected moments within "
+              f"{max(errs.values()):.3e} of one process (bound {FID_SYNC_RTOL:g}), counts equal; FID "
+              f"{got['value']:.6f} vs {want_value:.6f} ({got['collectives']} collectives in compute())")
+    del one, real, fake
+
     # elastic resume: the two ranks' shards (world=2) folded into one process
     def warm_ranking():
         mc = _ranking_collection(device, CURVE_CAPACITY)
@@ -1481,6 +1616,406 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
           f"{[c['local']['warnings'] for c in cases]} (rank zero); on_error='warn' -> degraded on both, warnings "
           f"{[c['warn']['warnings'] for c in cases]}; one NaN on rank 1 under enable_check_finite() -> "
           f"{[c['nonfinite'] for c in cases]}")
+
+
+def _cifar_data():
+    """10,000 "real" uint8 [3, 32, 32] images (uniform noise) and 10,000
+    "generated" ones (8x8 noise blown up 4x: blocky), from RandomState(7),
+    as [40, 250, 3, 32, 32] each."""
+    rng = np.random.RandomState(7)
+    real = rng.randint(0, 256, (CIFAR_IMAGES, 3, 32, 32), dtype=np.uint8)
+    fake = rng.randint(0, 256, (CIFAR_IMAGES, 3, 8, 8), dtype=np.uint8).repeat(4, axis=2).repeat(4, axis=3)
+    shape = (CIFAR_STEPS, CIFAR_STEP, 3, 32, 32)
+    return torch.from_numpy(real.reshape(shape)), torch.from_numpy(np.ascontiguousarray(fake).reshape(shape))
+
+
+def _quiet(make):
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return make()
+
+
+def _fid_parts(m):
+    """|mu1 - mu2|^2, tr S1 + tr S2, tr sqrt(S1 S2) and FID in float64 on
+    the host, from a FID's states, and the bar a float32 FID is held to
+    against that FID."""
+    from metrics_tpu_torch.image.fid import _mean_cov, _stats_to_mean_cov
+    from metrics_tpu_torch.ops.linalg import trace_sqrtm_product_eigh
+    from metrics_tpu_torch.utils.data import dim_zero_cat
+
+    def moments(side):
+        if m.streaming:
+            return _stats_to_mean_cov(*(getattr(m, f"{side}_{k}").cpu().double()
+                                        for k in ("sum", "sum_comp", "outer", "outer_comp", "n")))
+        return _mean_cov(dim_zero_cat(getattr(m, f"{side}_features")).cpu().double())
+
+    (mu1, s1), (mu2, s2) = moments("real"), moments("fake")
+    d2, traces = float((mu1 - mu2) @ (mu1 - mu2)), float(torch.trace(s1) + torch.trace(s2))
+    tr_sqrt = float(trace_sqrtm_product_eigh(s1, s2))
+    return dict(d2=d2, traces=traces, tr_sqrt=tr_sqrt, fid=d2 + traces - 2 * tr_sqrt,
+                bar=2 * (FID_SQRT_RTOL * tr_sqrt + FID_SQRT_ATOL))
+
+
+def _states_to(m, make, device):
+    """A fresh metric from ``make(device)`` holding ``m``'s states, moved."""
+    target = _quiet(lambda: make(device))
+    m.persistent(True)
+    target.load_state_dict(m.state_dict())
+    m.persistent(False)
+    return target
+
+
+def _step_profile(fn, step_ms, top=6, warm=True):
+    """Device busy share of one call of ``fn`` (an update step) against its
+    unprofiled host-clock ``step_ms``, and its top device operations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        print("  profile: the profiler recorded no device activity (device busy share not measured)")
+        return
+    busy_ms = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    syncs, d2h = _host_reads(prof)
+    print(f"  one update step: {len(ops)} device operations for {busy_ms:.4f} ms of device time against "
+          f"{step_ms:.4f} ms unprofiled: device busy {100 * busy_ms / step_ms:.2f}%, idle "
+          f"{100 * (1 - busy_ms / step_ms):.2f}%; {syncs} cudaStreamSynchronize, {d2h} DtoH copies")
+    by_name = {}
+    for e in ops:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"    device {ms:9.4f} ms ({100 * ms / busy_ms:5.1f}%) in {n:4d} op(s)  {name[:90]}")
+
+
+def _feature_check(card):
+    """The 2048 features of 16 images from the extractor ``card`` (random
+    weights of seed 0), against the port on the CPU: with PyTorch's default
+    TF32 flags (cuDNN TF32 on) and with them off; then, to show the bound
+    tells them apart, a forward with the float32 guard taken away and TF32
+    on."""
+    import metrics_tpu_torch.models.inception as inc
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor
+    from metrics_tpu_torch.utils.device import full_float32
+
+    device = card.device
+    imgs = torch.from_numpy(np.random.RandomState(17).randint(0, 256, (FEATURE_CHECK_IMAGES, 3, 32, 32),
+                                                             dtype=np.uint8))
+    cpu = _quiet(lambda: InceptionFeatureExtractor(2048, device="cpu"))
+    want = cpu(imgs)
+    bound = FEATURE_RTOL * float(want.abs().max())
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    got = {}
+    try:
+        for name, flags in (("PyTorch defaults (matmul False, cuDNN True)", (False, True)),
+                            ("off", (False, False))):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            got[name] = card(imgs.to(device)).cpu()
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        guard, inc.full_float32 = inc.full_float32, contextlib.nullcontext
+        try:
+            tf32 = card(imgs.to(device)).cpu()
+        finally:
+            inc.full_float32 = guard
+        assert inc.full_float32 is full_float32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    errs = {}
+    for name, g in got.items():
+        errs[name] = float((g - want).abs().max())
+        assert errs[name] <= bound, f"features with TF32 flags {name}: max abs err {errs[name]} > {bound}"
+    tf32_err = float((tf32 - want).abs().max())
+    same = torch.equal(*got.values())
+    print(f"features of {FEATURE_CHECK_IMAGES} images, card vs the port on the CPU (max |feature| "
+          f"{float(want.abs().max()):.4f}, bound {bound:.3e}): max abs err {errs}; the two flag settings "
+          f"{'bit-equal' if same else 'differ'}; without the float32 guard, TF32 on: {tf32_err:.3e} "
+          f"({tf32_err / bound:.1f}x the bound)")
+
+
+def _image_fid_phase(device):
+    """FID (buffered and streaming), KID and IS at CIFAR-10 FID-10k size
+    through the fidelity Inception with random weights; images/s in float32
+    and bfloat16; each compute() timed and profiled on the card and held
+    against the same compute() on the card's states moved to the CPU."""
+    from metrics_tpu_torch import FID, IS, KID
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor
+
+    metrics = {
+        "fid": _quiet(lambda: FID(2048, device=device)),
+        "fid_streaming": _quiet(lambda: FID(2048, streaming=True, device=device)),
+        "kid": _quiet(lambda: KID(2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=device)),
+        "is": _quiet(lambda: IS(splits=IS_SPLITS, device=device)),
+    }
+    _feature_check(metrics["fid"].inception)
+
+    t0 = time.perf_counter()
+    real, fake = _cifar_data()
+    real, fake = real.to(device), fake.to(device)
+    torch.cuda.synchronize()
+    print(f"data: {2 * CIFAR_IMAGES} uint8 images made and moved to the card in {time.perf_counter() - t0:.2f} s")
+
+    bf16 = _quiet(lambda: InceptionFeatureExtractor(2048, dtype=torch.bfloat16, device=device))
+    for dtype, ext in ((torch.float32, metrics["fid"].inception), (torch.bfloat16, bf16)):
+        ms = _time_ms(lambda: ext(real[0]), reps=5, inner=2)
+        print(f"Inception-v3 (fidelity, 2048 tap) forward of {CIFAR_STEP} images of 32x32 resized to 299, "
+              f"{str(dtype).replace('torch.', '')}: {ms:.3f} ms by CUDA events, {CIFAR_STEP / ms * 1e3:.1f} images/s")
+    del bf16
+
+    def step(i):
+        for name, m in metrics.items():
+            if name == "is":
+                m.update(fake[i])
+            else:
+                m.update(real[i], real=True)
+                m.update(fake[i], real=False)
+
+    step_ms = []
+    for i in range(CIFAR_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    per_step = 2 * 3 * CIFAR_STEP + CIFAR_STEP
+    print(f"{CIFAR_STEPS} update steps (FID, streaming FID and KID on {CIFAR_STEP} real + {CIFAR_STEP} generated "
+          f"images, IS on the {CIFAR_STEP} generated: {per_step} Inception images a step), the first "
+          f"{CIFAR_STEPS - 1} timed: median "
+          f"{np.median(step_ms):.3f} ms, first {step_ms[0]:.3f} ms, total {sum(step_ms) / 1e3:.2f} s, "
+          f"{per_step / np.median(step_ms) * 1e3:.1f} images/s; the last under the profiler:")
+    _step_profile(lambda: step(CIFAR_STEPS - 1), float(np.median(step_ms)), warm=False)
+
+    def fid_ns():
+        m = metrics["fid_streaming"]
+        m.sqrtm_method, m._computed = "ns", None
+        try:
+            return m.compute()
+        finally:
+            m.sqrtm_method, m._computed = "auto", None
+
+    computes = {
+        "fid (buffered, eigh)": (metrics["fid"], lambda: _fresh(metrics["fid"]),
+                                 lambda d: FID(lambda x: x, device=d)),
+        "fid (streaming, eigh)": (metrics["fid_streaming"], lambda: _fresh(metrics["fid_streaming"]),
+                                  lambda d: FID(lambda x: x, feature_dim=2048, streaming=True, device=d)),
+        "fid (streaming, ns)": (metrics["fid_streaming"], fid_ns,
+                                lambda d: FID(lambda x: x, feature_dim=2048, streaming=True, sqrtm_method="ns",
+                                              device=d)),
+        "kid": (metrics["kid"], lambda: _fresh(metrics["kid"]),
+                lambda d: KID(lambda x: x, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, device=d)),
+        "is": (metrics["is"], lambda: _fresh(metrics["is"]), lambda d: IS(lambda x: x, splits=IS_SPLITS, device=d)),
+    }
+    values = {}
+    for name, (m, fn, make) in computes.items():
+        value, p = _profile_call(fn, reps=3 if name != "fid (streaming, ns)" else 1)
+        _print_profile(name, p)
+        t0 = time.perf_counter()
+        on_cpu = _states_to(m, make, "cpu")
+        want = on_cpu.compute()
+        cpu_s = time.perf_counter() - t0
+        if name.startswith("fid"):
+            parts = _fid_parts(on_cpu)
+            errs = {"card": abs(float(value) - parts["fid"]), "cpu": abs(float(want) - parts["fid"])}
+            assert max(errs.values()) <= parts["bar"], f"{name}: card {float(value)}, CPU {float(want)}, {parts}"
+            print(f"    {name}: {float(value):.6f} on the card, {float(want):.6f} on the CPU ({cpu_s:.1f} s), "
+                  f"{parts['fid']:.6f} in float64 (|mu1-mu2|^2 {parts['d2']:.6f}, tr S1 + tr S2 "
+                  f"{parts['traces']:.6f}, tr sqrt(S1 S2) {parts['tr_sqrt']:.6f}): |diff| to float64 card "
+                  f"{errs['card']:.3e}, CPU {errs['cpu']:.3e} (bar {parts['bar']:.3e}); card vs CPU "
+                  f"{abs(float(value) - float(want)):.3e}")
+            values[name + " parts"] = parts
+        elif name == "kid":
+            feats = on_cpu.real_features[0]
+            kscale = float((feats.pow(2).sum(1).mean() / feats.shape[1] + 1) ** 3)
+            errs = [abs(float(g) - float(w)) for g, w in zip(value, want)]
+            assert max(errs) <= KID_KERNEL_RTOL * kscale, f"kid: card {value} vs CPU {want}"
+            print(f"    kid: mean {float(value[0]):.6e} std {float(value[1]):.6e} on the card; |diff| to the CPU "
+                  f"({cpu_s:.1f} s) {errs}, bound {KID_KERNEL_RTOL * kscale:.3e} (kernel size {kscale:.4f})")
+        else:
+            errs = [abs(float(g) - float(w)) for g, w in zip(value, want)]
+            assert max(errs) <= IS_ATOL, f"is: card {value} vs CPU {want}"
+            print(f"    is: mean {float(value[0]):.6f} std {float(value[1]):.6f} on the card; |diff| to the CPU "
+                  f"({cpu_s:.1f} s) {errs} (bound {IS_ATOL:g})")
+        values[name] = value
+        del on_cpu
+    buffered, streaming = float(values["fid (buffered, eigh)"]), float(values["fid (streaming, eigh)"])
+    bar = values["fid (buffered, eigh) parts"]["bar"]
+    assert abs(buffered - streaming) <= 2 * bar, f"buffered FID {buffered} vs streaming {streaming}"
+    print(f"buffered FID {buffered:.6f} vs streaming {streaming:.6f}: |diff| {abs(buffered - streaming):.3e} "
+          f"(bound {2 * bar:.3e}); ns {float(values['fid (streaming, ns)']):.6f}; counts real "
+          f"{float(metrics['fid_streaming'].real_n):.0f}, fake {float(metrics['fid_streaming'].fake_n):.0f}")
+    assert float(metrics["fid_streaming"].real_n) == float(metrics["fid_streaming"].fake_n) == CIFAR_IMAGES
+    assert all(bool(torch.isfinite(torch.as_tensor(v)).all()) for k, vs in values.items() if "parts" not in k
+               for v in (vs if isinstance(vs, tuple) else (vs,)))
+    del metrics, real, fake
+
+
+def _bapps_data(device):
+    """10,000 pairs of [3, 64, 64] patches in [-1, 1] from RandomState(8):
+    8-bit references and a distortion of each (every value off by up to 24
+    levels, clipped), drawn as bytes and scaled on the card, as
+    [40, 250, 3, 64, 64] float32 each."""
+    rng = np.random.RandomState(8)
+    shape = (BAPPS_PAIRS // BAPPS_STEP, BAPPS_STEP, 3, BAPPS_HW, BAPPS_HW)
+    ref = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(device).to(torch.int16)
+    noise = torch.from_numpy(rng.randint(-24, 25, shape, dtype=np.int8)).to(device)
+    dist = torch.clamp(ref + noise, 0, 255)
+    return ref.to(torch.float32) / 127.5 - 1, dist.to(torch.float32) / 127.5 - 1
+
+
+def _image_lpips_phase(device):
+    """LPIPS with the AlexNet and VGG16 towers over 10,000 BAPPS-size pairs;
+    pairs/s; one batch against the port on the CPU."""
+    from metrics_tpu_torch import LPIPS
+
+    t0 = time.perf_counter()
+    ref, dist = _bapps_data(device)
+    torch.cuda.synchronize()
+    print(f"data: {BAPPS_PAIRS} pairs of [3, {BAPPS_HW}, {BAPPS_HW}] made and moved in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for net in ("alex", "vgg"):
+        m = _quiet(lambda: LPIPS(net_type=net, device=device))
+        m(ref[0], dist[0])  # warm-up: cuDNN picks its algorithms
+        m.reset()
+        step_ms = []
+        for i in range(len(ref)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m(ref[i], dist[i])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        value = m.compute()
+        assert float(m.total) == BAPPS_PAIRS and bool(torch.isfinite(value))
+        cpu_net = _quiet(lambda: LPIPS(net_type=net, device="cpu")).net
+        card_net = m.net
+        a, b = ref[0, :LPIPS_CHECK_PAIRS], dist[0, :LPIPS_CHECK_PAIRS]
+        want = cpu_net(a.cpu(), b.cpu())
+        got = card_net(a, b).cpu()
+        err = float((got - want).abs().max())
+        assert err <= LPIPS_RTOL * float(want.abs().max()), f"lpips {net}: card vs CPU max abs err {err}"
+        print(f"LPIPS({net}): forward step of {BAPPS_STEP} pairs median {np.median(step_ms):.3f} ms, "
+              f"{BAPPS_STEP / np.median(step_ms) * 1e3:.1f} pairs/s, {len(ref)} steps in {sum(step_ms) / 1e3:.2f} s; "
+              f"mean distance {float(value):.6f}; {LPIPS_CHECK_PAIRS} pairs card vs CPU max abs err {err:.3e} "
+              f"(bound {LPIPS_RTOL * float(want.abs().max()):.3e})")
+        _step_profile(lambda: m(ref[0], dist[0]), float(np.median(step_ms)), top=4)
+        del m
+    del ref, dist
+
+
+def _div2k_data(device):
+    """100 uint8 high-resolution images cut to [3, 1356, 2040] and their
+    reconstructions (each pixel off by -8..8, clipped), from RandomState(9),
+    drawn as bytes and combined on the card, as [25, 4, 3, 1356, 2040]
+    uint8 each."""
+    rng = np.random.RandomState(9)
+    shape = (DIV2K_STEPS, DIV2K_STEP, 3, *DIV2K_HW)
+    hr = torch.from_numpy(rng.randint(0, 256, shape, dtype=np.uint8)).to(device)
+    noise = torch.from_numpy(rng.randint(-8, 9, shape, dtype=np.int8)).to(device)
+    sr = torch.clamp(hr.to(torch.int16) + noise, 0, 255).to(torch.uint8)
+    return sr, hr
+
+
+def _image_ssim_phase(device):
+    """PSNR and streaming SSIM over DIV2K's validation split at full size;
+    step time and SSIM's window-conv time; the first 2 steps against the port
+    on the CPU; the float32 counts against the JAX package's rounding."""
+    import torch.nn.functional as F
+
+    from metrics_tpu_torch import PSNR, SSIM
+    from metrics_tpu_torch.functional import image_gradients
+    from metrics_tpu_torch.functional.image.ssim import _gaussian_kernel
+    from metrics_tpu_torch.utils.device import full_float32
+
+    t0 = time.perf_counter()
+    sr, hr = _div2k_data(device)
+    torch.cuda.synchronize()
+    print(f"data: {DIV2K_IMAGES} pairs of uint8 [3, {DIV2K_HW[0]}, {DIV2K_HW[1]}] made and moved in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def batch(i, dev):
+        return sr[i].to(dev).to(torch.float32) / 255.0, hr[i].to(dev).to(torch.float32) / 255.0
+
+    def make(dev):
+        return {"psnr": PSNR(data_range=1.0, device=dev), "ssim": SSIM(data_range=1.0, device=dev)}
+
+    warm = make(device)
+    for m in warm.values():
+        m.update(*batch(0, device))
+    del warm
+    ms = make(device)
+    step_ms = []
+    for i in range(DIV2K_STEPS):
+        p, t = batch(i, device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for m in ms.values():
+            m.update(p, t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    values = {k: m.compute() for k, m in ms.items()}
+    # the full run's float32 counts against the JAX package's: the same
+    # float32 additions, rounded past 2**24
+    n_map = DIV2K_STEP * 3 * (DIV2K_HW[0] - 10) * (DIV2K_HW[1] - 10)
+    n_pix = DIV2K_STEP * 3 * DIV2K_HW[0] * DIV2K_HW[1]
+    jax_counts = {"ssim": np.float32(0), "psnr": np.float32(0)}
+    for _ in range(DIV2K_STEPS):
+        jax_counts["ssim"] = np.float32(jax_counts["ssim"] + np.float32(n_map))
+        jax_counts["psnr"] = np.float32(jax_counts["psnr"] + np.float32(n_pix))
+    for k, m in ms.items():
+        assert m.total.dtype == torch.float32 and float(m.total) == float(jax_counts[k]), (k, float(m.total))
+    assert all(bool(torch.isfinite(v)) for v in values.values())
+
+    p, t = batch(0, device)
+    pad = 5
+    planes = torch.cat([F.pad(x, (pad,) * 4, mode="reflect") for x in (p, t)])
+    planes = torch.cat([planes, planes * planes, planes[:DIV2K_STEP] * planes[DIV2K_STEP:]])
+    kernel = _gaussian_kernel(3, (11, 11), (1.5, 1.5), torch.float32, device)
+
+    def window():
+        with full_float32():
+            return F.conv2d(planes, kernel, groups=3)
+
+    conv_ms = _time_ms(window, reps=5, inner=3)
+    conv_bytes = (planes.numel() + window().numel()) * 4
+    planes_shape = planes.shape
+    del planes
+    fresh = make(device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fresh["ssim"].update(p, t)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    dy, dx = image_gradients(p)
+    assert dy.shape == dx.shape == p.shape and float(dy[..., -1, :].abs().max()) == 0.0
+    print(f"{DIV2K_STEPS} steps of {DIV2K_STEP} images: PSNR + SSIM update median {np.median(step_ms):.3f} ms "
+          f"(first {step_ms[0]:.3f}), {DIV2K_STEP / np.median(step_ms) * 1e3:.2f} images/s; SSIM's window "
+          f"(one depthwise 11x11 conv over the 5 stacked planes {list(planes_shape)}) {conv_ms:.3f} ms by CUDA events, "
+          f"{conv_bytes / conv_ms / 1e6:.1f} GB/s of its input and output; peak memory of an SSIM update "
+          f"{peak:.1f} MiB above its inputs; PSNR {float(values['psnr']):.6f} dB, SSIM {float(values['ssim']):.6f}; "
+          f"float32 counts PSNR {float(ms['psnr'].total):.0f} (exact {DIV2K_STEPS * n_pix}), SSIM "
+          f"{float(ms['ssim'].total):.0f} (exact {DIV2K_STEPS * n_map}), each equal to the JAX package's rounding")
+    _step_profile(lambda: [m.update(p, t) for m in fresh.values()], float(np.median(step_ms)), top=5)
+    del fresh, dy, dx
+
+    # the card against the port on the CPU over the first 2 steps
+    card, host = make(device), make("cpu")
+    t0 = time.perf_counter()
+    for i in range(SSIM_CHECK_STEPS):
+        for dev, group in ((device, card), ("cpu", host)):
+            pb, tb = batch(i, dev)
+            for m in group.values():
+                m.update(pb, tb)
+    errs = {k: abs(float(card[k].compute()) - float(host[k].compute())) for k in card}
+    assert errs["ssim"] <= SSIM_ATOL and errs["psnr"] <= PSNR_ATOL, errs
+    assert float(card["ssim"].total) == float(host["ssim"].total)
+    print(f"first {SSIM_CHECK_STEPS} steps card vs CPU ({time.perf_counter() - t0:.1f} s): |diff| {errs} (bounds "
+          f"SSIM {SSIM_ATOL:.2e}, PSNR {PSNR_ATOL:.2e} dB)")
+    del sr, hr
 
 
 def main() -> int:
@@ -1751,6 +2286,21 @@ def main() -> int:
     _phase("checkpoint: save, verified load and a corrupted file, for the curves and retrieval collections")
     _checkpoint_phase(device, curves_runs["capacity"]["collection"], retrieval_runs["capacity"]["collection"])
     del curves_runs
+
+    _phase(f"image-fid: FID (buffered and streaming), KID({KID_SUBSETS}x{KID_SUBSET_SIZE}) and IS({IS_SPLITS}) at "
+           f"CIFAR-10 FID-10k size ({CIFAR_IMAGES} real + {CIFAR_IMAGES} generated 32x32 uint8 images in "
+           f"{CIFAR_STEPS} steps of {CIFAR_STEP}), fidelity Inception-v3 with random weights; CPU checks on "
+           f"{FEATURE_CHECK_IMAGES} images' features and on each compute() over the card's states")
+    _image_fid_phase(device)
+
+    _phase(f"image-lpips: LPIPS(alex) and LPIPS(vgg) on {BAPPS_PAIRS} pairs of {BAPPS_HW}x{BAPPS_HW} patches (BAPPS "
+           f"size) in {BAPPS_PAIRS // BAPPS_STEP} steps of {BAPPS_STEP}; CPU check on {LPIPS_CHECK_PAIRS} pairs")
+    _image_lpips_phase(device)
+
+    _phase(f"image-ssim: PSNR and SSIM (data_range=1, streaming) on DIV2K validation size ({DIV2K_IMAGES} images "
+           f"of [3, {DIV2K_HW[0]}, {DIV2K_HW[1]}] in {DIV2K_STEPS} steps of {DIV2K_STEP}), image_gradients; CPU check "
+           f"on the first {SSIM_CHECK_STEPS} steps")
+    _image_ssim_phase(device)
 
     _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking, regression and retrieval "
            "collections, divergence cases, and an elastic resume of the ranks' shards into one process")

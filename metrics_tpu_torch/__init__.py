@@ -41,6 +41,7 @@ from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.core.checkpoint import load_checkpoint, prune_checkpoints, save_checkpoint
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.image import FID, IS, KID, LPIPS, PSNR, SSIM
 from metrics_tpu_torch.retrieval import (
     RetrievalCollection,
     RetrievalFallOut,
@@ -83,10 +84,14 @@ __all__ = [
     "ExplainedVariance",
     "F1",
     "FBeta",
+    "FID",
     "HammingDistance",
     "Hinge",
+    "IS",
     "IoU",
+    "KID",
     "KLDivergence",
+    "LPIPS",
     "MatthewsCorrcoef",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",
@@ -94,6 +99,7 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "PSNR",
     "PearsonCorrcoef",
     "Precision",
     "PrecisionRecallCurve",
@@ -108,6 +114,7 @@ __all__ = [
     "RetrievalNormalizedDCG",
     "RetrievalPrecision",
     "RetrievalRecall",
+    "SSIM",
     "SpearmanCorrcoef",
     "Specificity",
     "StatScores",

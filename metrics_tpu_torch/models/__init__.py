@@ -1,0 +1,14 @@
+from metrics_tpu_torch.models.inception import (
+    InceptionFeatureExtractor,
+    InceptionV3,
+    load_torch_inception_weights,
+)
+from metrics_tpu_torch.models.lpips_net import LPIPSNetwork, load_torch_lpips_weights
+
+__all__ = [
+    "InceptionFeatureExtractor",
+    "InceptionV3",
+    "LPIPSNetwork",
+    "load_torch_inception_weights",
+    "load_torch_lpips_weights",
+]

@@ -1,0 +1,91 @@
+"""``jax.random``'s key, split and permutation, bit for bit, in torch.
+
+KID draws its subsets and IS its shuffle with ``jax.random`` in the JAX
+package (``metrics_tpu/image/kid.py:141-150``, ``image/inception.py:77``);
+a ``torch.randperm`` would give another KID and IS for the same ``seed``.
+This module reproduces JAX's default generator, ``threefry2x32`` with
+``jax_threefry_partitionable=True`` (the default since JAX 0.5): a key is
+two uint32 words, ``split`` hashes the 64-bit iota counters under the key,
+32-bit random bits are the XOR of the two hashed words, and a permutation
+is ``ceil(3·ln(n)/ln(2**32-1))`` rounds of a split and a stable sort by
+fresh bits. uint32 words are held in int64 and masked to 32 bits, on the
+device of the caller's choice.
+"""
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(
+    k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of the counter words ``(x1, x2)``
+    under the key ``(k1, k2)``; every argument int64 in [0, 2**32),
+    broadcasting."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & _MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x[0], x[1]
+
+
+def prng_key(seed: int, device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed: the words ``[0, seed
+    mod 2**32]`` as an int64 ``[2]`` tensor."""
+    if not -(2**31) <= seed < 2**32:
+        raise ValueError(f"seed {seed} does not fit 32 bits")
+    key = torch.zeros(2, dtype=torch.int64, device=device)
+    key[1] = seed & _MASK  # a fill on the device, not a copy from the host
+    return key
+
+
+def _hash_iota(key: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both hashed words of the counters ``0 .. n-1`` under each key of
+    ``key`` (``[..., 2]``): ``[..., n]`` each."""
+    counts = torch.arange(n, dtype=torch.int64, device=key.device)
+    k1, k2 = key[..., 0:1], key[..., 1:2]
+    return threefry2x32(k1, k2, torch.zeros_like(counts), counts)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)``: ``[..., num, 2]`` new keys."""
+    bits1, bits2 = _hash_iota(key, num)
+    return torch.stack([bits1, bits2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``n`` uniform 32-bit words per key (``jax.random.bits(key, (n,))``):
+    ``[..., n]``."""
+    bits1, bits2 = _hash_iota(key, n)
+    return bits1 ^ bits2
+
+
+def shuffle_rounds(n: int) -> int:
+    """Rounds of ``jax.random.permutation`` for ``n`` items (3 is the
+    exponent of JAX's collision analysis)."""
+    return int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(key, n)`` as int64 ``[..., n]``; a batch of
+    keys ``[..., 2]`` gives one permutation per key, as JAX's ``vmap``."""
+    x = torch.arange(n, dtype=torch.int64, device=key.device).expand(*key.shape[:-1], n)
+    for _ in range(shuffle_rounds(n)):
+        keys = split(key)
+        key, subkey = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(random_bits(subkey, n), dim=-1, stable=True).indices
+        x = torch.gather(x, -1, order)
+    return x

@@ -147,6 +147,10 @@ def test_docstring_examples_run(module):
     assert result.attempted > 0 and result.failed == 0, result
 
 
+def _identity(*x):
+    return x[0]
+
+
 DEFAULT_DEVICE_CASES = {
     "Accuracy": lambda **kw: port.Accuracy(num_classes=10, **kw),
     "StatScores": lambda **kw: port.StatScores(reduce="macro", num_classes=10, **kw),
@@ -192,6 +196,13 @@ DEFAULT_DEVICE_CASES = {
         {"map": port.RetrievalMAP(device="cpu")}, num_queries=8, **kw).with_capacity(64),
     # a composite takes its operands' device
     "CompositionalMetric": lambda **kw: port.Precision(**kw) * port.Recall(**kw) + 1.0,
+    "PSNR": lambda **kw: port.PSNR(data_range=1.0, **kw),
+    "SSIM": lambda **kw: port.SSIM(data_range=1.0, **kw),
+    # a callable network: the built-in ones take the metric's device too
+    "FID": lambda **kw: port.FID(_identity, feature_dim=8, streaming=True, **kw),
+    "KID": lambda **kw: port.KID(_identity, **kw),
+    "IS": lambda **kw: port.IS(_identity, **kw),
+    "LPIPS": lambda **kw: port.LPIPS(net=_identity, **kw),
 }
 
 
