@@ -75,12 +75,34 @@
    streaming SSIM on 100 DIV2K-size [3, 1356, 2040] images, the window
    convolution timed, the first 2 steps against the CPU and the float32
    counts against the JAX package's rounding, ``image_gradients`` once;
-15. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
+15. text: WER at LibriSpeech test-clean size (2,620 utterances), BLEU at
+   WMT newstest size (3,000 segments) and ROUGE (rouge1/2/L/Lsum, stemmed:
+   the built-in Porter where nltk is absent) on 1,000 CNN/DailyMail-size
+   summaries, from a seeded 5,000-word vocabulary, on the card and on the
+   CPU: states equal (ROUGE's per sentence), WER's value equal, BLEU's and
+   ROUGE's means within their bounds; host ms per update and of compute();
+16. bertscore: BERTScore through a bert-base-width ``BertEncoder`` (12
+   layers, hidden 768, random weights from a seeded ``torch.Generator``
+   loaded through ``load_torch_bert_weights``) over 3,000 newstest-size pairs
+   in 30 update steps (``max_length=128``, ``batch_size=64``); the encoder's
+   sentences/s; ``compute()`` timed and profiled; the first 64 pairs against
+   the port on the CPU, with TF32 switched on outside the float32 guard and,
+   to show the bound tells them apart, without the guard; identical pairs
+   score F1 = 1 and swapped sides swap P and R; then the default encoder
+   (``bert_init`` weights) with ``idf=True``;
+17. audio: PIT(si_sdr) and SI-SDR, SI-SNR and SNR on PIT's order at
+   WSJ0-2mix and wsj0-3mix test size (3,000 mixtures of 32,000 samples, 30
+   steps of 100) and one batch of 8 speakers (the host Hungarian solve),
+   against the CPU run (permutations equal wherever the best one leads by
+   more than the values' bound); step ms and idle share;
+18. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
    gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
    report batches, of the curves batches (AUROC + AveragePrecision with
    ``with_capacity``), of the regression batches (PearsonCorrcoef's
    ``dist_reduce_fx=None`` states gather to ``[2]`` and fold) and of the
-   retrieval queries, and a streaming FID of half the feature batches each;
+   retrieval queries, a streaming FID of half the feature batches, the text
+   metrics (WER, BLEU, ROUGE) as one collection and the default BERTScore
+   over 256 pairs, half of each;
    the collections sync through one health header and one bucketed plan, and the synced values on both ranks are held against one
    process on the card over all batches; counts the collectives of the fused
    sync against the per-leaf sync and times both; then drives three
@@ -90,7 +112,7 @@
    each rank saves its shard (``world=2``) of the report, ranking and
    retrieval collections, and the main process folds the two into one
    (``world=1``), held against the one-process runs: an elastic resume;
-16. profiles a step of each collection (the report collection with and
+19. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -247,6 +269,48 @@ SSIM_CHECK_STEPS = 2
 # whose squared-error sum rounds 26 + 2 times each side
 SSIM_ATOL = 2 * (28 + 98 + 26 + 4) * 2.0 ** -24
 PSNR_ATOL = 4.35 * 2 * (25 + 2) * 2.0 ** -24
+
+# text phase: a seeded vocabulary of 5,000 words; WER at LibriSpeech
+# test-clean size (2,620 utterances), BLEU at WMT newstest size (3,000
+# segments, one reference each), ROUGE (stemmed) on 1,000 CNN/DailyMail-size
+# summaries (3-4 highlight sentences of ~56 words together; the test split
+# holds 11,490, cut to 1,000 for the script's time)
+TEXT_VOCAB, LIBRISPEECH_UTTERANCES, NEWSTEST_SEGMENTS, CNNDM_SUMMARIES = 5000, 2620, 3000, 1000
+TEXT_STEPS = {"wer": 262, "bleu": 100, "rouge": 100}
+ROUGE_KEYS = ("rouge1", "rouge2", "rougeL", "rougeLsum")
+# BLEU's value: four float32 logs and an exp, which the card's and the
+# host's math libraries may each round an ulp apart: 4 * 2**-24 relative
+BLEU_RTOL = 4 * 2.0 ** -24
+# ROUGE means of 1,000 float32 per-sentence values summed in another order
+# on each side: 2 * log2(1000) * 2**-24 relative
+ROUGE_MEAN_RTOL = 2 * float(np.log2(CNNDM_SUMMARIES)) * 2.0 ** -24
+# bertscore phase: bert-base-uncased width, 3,000 newstest pairs in 30
+# update steps, padded to 128 tokens, embedded 64 sentences at a time
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, max_position_embeddings=512)
+BERT_STEPS, BERT_MAX_LEN, BERT_BATCH, BERT_CHECK_PAIRS, ENCODER_REPS = 30, 128, 64, 64, 10
+# P, R, F1 card vs CPU: each layer's outputs are float32 sums of up to 3,072
+# products (log2 = 11.6 roundings), ordered differently by cuBLAS and the
+# host, through 12 layers (layer norm keeps each at its scale): a hidden
+# entry moves by up to 12 * 11.6 * 2**-24 = 8.3e-6 of its size; a cosine of
+# unit vectors by twice that, and P, R, F1 are weighted means of cosines
+BERT_ATOL = 2 * 12 * float(np.log2(3072)) * 2.0 ** -24
+# audio phase: WSJ0-2mix's and wsj0-3mix's test ("tt") sets, 3,000 mixtures
+# each at 8 kHz, cut to 32,000 samples (4 s; the sets' lengths vary), in 30
+# steps of 100; one batch of 20 mixtures of 8 speakers takes the Hungarian path
+WSJ_MIXTURES, WSJ_SAMPLES, WSJ_STEP = 3000, 32000, 100
+HUNGARIAN_SPK, HUNGARIAN_MIXTURES = 8, 20
+# a dB value, card vs CPU: 10 log10 of a ratio of float32 sums over 32,000
+# samples (log2 = 15 roundings each; 4 sums with SI-SDR's alpha), the two
+# sides erring in opposite directions, plus the cancellation in the noise
+# (scaled target minus estimate, ~0.36 of the signal: 3 roundings' worth):
+# 10 / ln(10) * 2 * (4 * 15 + 3) * 2**-24 = 3.3e-5 dB
+AUDIO_DB_ATOL = 10 / float(np.log(10)) * 2 * (4 * float(np.log2(WSJ_SAMPLES)) + 3) * 2.0 ** -24
+# sync phase's text metrics: WER over the first 524 utterances, BLEU over 600
+# segments, ROUGE over 200 summaries, and the default BERTScore (idf) over
+# 256 pairs, half of each on each rank
+SYNC_TEXT = {"wer": 524, "bleu": 600, "rouge": 200}  # in _text_data's argument order
+SYNC_BERT_PAIRS = 256
 
 
 _START = time.perf_counter()
@@ -1422,6 +1486,29 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         out["fid"]["collectives"] = len(gathers)
         del fid, real, fake
 
+        # the text metrics as one collection, each member fed its first
+        # SYNC_TEXT items, half on each rank; the default BERTScore (idf)
+        # over SYNC_BERT_PAIRS pairs, half on each rank
+        from metrics_tpu_torch import BERTScore, MetricCollection
+
+        data = _text_data(*SYNC_TEXT.values())
+        text = MetricCollection(_text_metrics(device))
+        for name, n in SYNC_TEXT.items():
+            a, b = data[name]
+            text[name].update(*(x[rank * n // world:(rank + 1) * n // world] for x in (a, b)))
+        gathers.clear()
+        values = text.compute()
+        out["text"] = {"collectives": len(gathers), "values": {
+            k: {kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict) else v.cpu() for k, v in values.items()}}
+        hyps, refs = data["bert"]
+        share = slice(rank * SYNC_BERT_PAIRS // world, (rank + 1) * SYNC_BERT_PAIRS // world)
+        bert = BERTScore(max_length=BERT_MAX_LEN, batch_size=BERT_BATCH, idf=True, device=device)
+        bert.update(hyps[share], refs[share])
+        assert all(s.device == device for s in bert.preds_input_ids)
+        gathers.clear()
+        out["bertscore"] = {"values": _quiet(bert.compute), "collectives": len(gathers)}
+        del text, bert, data
+
         # three divergence cases, every one decided by the health header
         gen = torch.Generator().manual_seed(10 + rank)
 
@@ -1483,7 +1570,7 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
 
     import torch.multiprocessing as mp
 
-    from metrics_tpu_torch import load_checkpoint
+    from metrics_tpu_torch import MetricCollection, load_checkpoint
 
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -1570,6 +1657,30 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
               f"{max(errs.values()):.3e} of one process (bound {FID_SYNC_RTOL:g}), counts equal; FID "
               f"{got['value']:.6f} vs {want_value:.6f} ({got['collectives']} collectives in compute())")
     del one, real, fake
+
+    from metrics_tpu_torch import BERTScore
+
+    text_data = _text_data(*SYNC_TEXT.values())
+    text = MetricCollection(_text_metrics(device))
+    for name, n in SYNC_TEXT.items():
+        a, b = text_data[name]
+        text[name].update(a[:n], b[:n])
+    want_text = text.compute()
+    hyps, refs = text_data["bert"]
+    bert = BERTScore(max_length=BERT_MAX_LEN, batch_size=BERT_BATCH, idf=True, device=device)
+    bert.update(hyps[:SYNC_BERT_PAIRS], refs[:SYNC_BERT_PAIRS])
+    want_bert = _quiet(bert.compute)
+    for rank, result in enumerate(ranks):
+        got = result["text"]["values"]
+        assert torch.equal(got["wer"], want_text["wer"].cpu()) and torch.equal(got["bleu"], want_text["bleu"].cpu()), rank
+        assert all(torch.equal(got["rouge"][k], v.cpu()) for k, v in want_text["rouge"].items()), rank
+        errs = _bert_errs(result["bertscore"]["values"], want_bert)
+        assert max(errs.values()) <= BERT_ATOL, f"BERTScore rank {rank}: synced vs one process {errs}"
+        print(f"text, rank {rank}: WER, BLEU and ROUGE ({SYNC_TEXT}) synced in one compute() "
+              f"({result['text']['collectives']} collectives), values equal to one process bit for bit; BERTScore "
+              f"over {SYNC_BERT_PAIRS} pairs ({result['bertscore']['collectives']} collectives) "
+              + ("bit-equal to one process" if result["bertscore"]["values"] == want_bert else f"within {errs}"))
+    del text, bert, text_data, want_text, want_bert
 
     # elastic resume: the two ranks' shards (world=2) folded into one process
     def warm_ranking():
@@ -2018,6 +2129,429 @@ def _image_ssim_phase(device):
     del sr, hr
 
 
+def _vocab():
+    """5,000 seeded word strings (RandomState(20)): one to three syllables
+    and an English suffix, so that the Porter stemmer has work; and the
+    cumulative Zipf weights (p ~ 1 / rank) the text data draws them with."""
+    rng = np.random.RandomState(20)
+    onsets = ["b", "c", "d", "f", "g", "h", "l", "m", "n", "p", "r", "s", "t", "v", "w", "br", "ch", "pl", "st", "tr"]
+    vowels = ["a", "e", "i", "o", "u", "ai", "ea", "ou"]
+    codas = ["", "n", "r", "s", "t", "l", "nd", "st"]
+    suffixes = ["", "", "", "s", "ing", "ed", "ation", "ness", "ly", "ies", "ful", "ment"]
+    words = set()
+    while len(words) < TEXT_VOCAB:
+        syllables = "".join(onsets[rng.randint(len(onsets))] + vowels[rng.randint(len(vowels))]
+                            + codas[rng.randint(len(codas))] for _ in range(rng.randint(1, 4)))
+        words.add(syllables + suffixes[rng.randint(len(suffixes))])
+    words = np.array(sorted(words))
+    cdf = np.cumsum(1.0 / np.arange(1, TEXT_VOCAB + 1))
+    return words[rng.permutation(TEXT_VOCAB)], cdf / cdf[-1]
+
+
+def _draw(rng, vocab, n):
+    words, cdf = vocab
+    return list(words[np.minimum(np.searchsorted(cdf, rng.random_sample(n)), len(words) - 1)])
+
+
+def _edit(rng, vocab, tokens, sub, dele, ins):
+    """``tokens`` with each word substituted, deleted or followed by an
+    inserted word with the given probabilities."""
+    out = []
+    for w, r in zip(tokens, rng.rand(len(tokens))):
+        if r < dele:
+            continue
+        out.append(_draw(rng, vocab, 1)[0] if r < dele + sub else w)
+        if r > 1 - ins:
+            out.append(_draw(rng, vocab, 1)[0])
+    return out or list(tokens[:1])
+
+
+def _text_data(n_wer, n_bleu, n_rouge):
+    """The text phases' data, the first ``n_*`` items of each family (one
+    RandomState each, 21 to 23, so a prefix costs only itself):
+    - wer: 2,620 (hypothesis, reference) utterances of 10-30 words
+      (LibriSpeech test-clean's count), 5% each substituted, deleted and
+      inserted;
+    - bleu: 3,000 (tokenized hypothesis, [reference]) segments of 15-35
+      tokens (a WMT newstest's count), 20% substituted, 5% deleted, 5%
+      inserted;
+    - rouge: 1,000 (summary, highlights) pairs: highlights of 3-4 sentences,
+      ~56 words together (CNN/DailyMail's), a summary reusing 60% of their
+      words and one sentence of its own;
+    - bert: the bleu segments as sentence pairs, every 10th pair identical."""
+    vocab = _vocab()
+
+    def pairs(seed, n, lo, hi, sub):
+        rng = np.random.RandomState(seed)
+        refs, hyps = [], []
+        for _ in range(n):
+            refs.append(_draw(rng, vocab, rng.randint(lo, hi)))
+            hyps.append(_edit(rng, vocab, refs[-1], sub, 0.05, 0.05))
+        return refs, hyps
+
+    wer_refs, wer_hyps = pairs(21, n_wer, 10, 31, 0.05)
+    bleu_refs, bleu_hyps = pairs(22, n_bleu, 15, 36, 0.2)
+    rng = np.random.RandomState(23)
+    highlights, summaries = [], []
+    for _ in range(n_rouge):
+        n = rng.randint(3, 5)
+        sents = [_draw(rng, vocab, rng.randint(56 // n - 3, 56 // n + 4)) for _ in range(n)]
+        highlights.append(" ".join(" ".join(s).capitalize() + "." for s in sents))
+        kept = [[w for w in s if rng.rand() < 0.6] or s[:1] for s in sents]
+        summaries.append(" ".join(" ".join(s).capitalize() + "." for s in kept + [_draw(rng, vocab, rng.randint(8, 16))]))
+    bert_hyps = [" ".join(h) for h in bleu_hyps]
+    bert_refs = [" ".join(r) for r in bleu_refs]
+    for i in range(0, n_bleu, 10):
+        bert_hyps[i] = bert_refs[i]
+    return {
+        "wer": ([" ".join(h) for h in wer_hyps], [" ".join(r) for r in wer_refs]),
+        "bleu": ([[r] for r in bleu_refs], bleu_hyps),
+        "rouge": (summaries, highlights),
+        "bert": (bert_hyps, bert_refs),
+    }
+
+
+def _text_metrics(dev):
+    from metrics_tpu_torch import WER, BLEUScore, ROUGEScore
+
+    return {"wer": WER(device=dev), "bleu": BLEUScore(device=dev),
+            "rouge": ROUGEScore(use_stemmer=True, rouge_keys=ROUGE_KEYS, device=dev)}
+
+
+def _text_run(data, dev):
+    """WER, BLEU and ROUGE over their data in steps; host ms of each update
+    (ending in a synchronize on the card) and of each compute()."""
+    metrics, update_ms, compute_ms, values = _text_metrics(dev), {}, {}, {}
+    for name, m in metrics.items():
+        a, b = data[name]
+        step = TEXT_STEPS[name]
+        update_ms[name] = []
+        for i in range(0, len(a), step):
+            t0 = time.perf_counter()
+            m.update(a[i:i + step], b[i:i + step])
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            update_ms[name].append((time.perf_counter() - t0) * 1e3)
+        compute_ms[name] = []
+        for _ in range(2):  # the first call also loads the card's kernels
+            t0 = time.perf_counter()
+            values[name] = _fresh(m)
+            if torch.device(dev).type == "cuda":
+                torch.cuda.synchronize()
+            compute_ms[name].append((time.perf_counter() - t0) * 1e3)
+    return metrics, values, update_ms, compute_ms
+
+
+def _text_phase(device):
+    """WER at LibriSpeech test-clean size, BLEU at newstest size and ROUGE
+    (rouge1/2/L/Lsum, stemmed) on 1,000 CNN/DailyMail-size summaries, on the
+    card and on the CPU: states equal, WER's value equal, BLEU's within an
+    ulp's bound, ROUGE's per-sentence states equal and means within a bound."""
+    import metrics_tpu_torch.functional.text.rouge as rouge_mod
+
+    t0 = time.perf_counter()
+    data = _text_data(LIBRISPEECH_UTTERANCES, NEWSTEST_SEGMENTS, CNNDM_SUMMARIES)
+    print(f"data: {TEXT_VOCAB} words; {LIBRISPEECH_UTTERANCES} utterances, {NEWSTEST_SEGMENTS} segments, "
+          f"{CNNDM_SUMMARIES} summaries made in {time.perf_counter() - t0:.2f} s; stemmer: "
+          f"{'nltk' if rouge_mod._NLTK_AVAILABLE else 'built-in Porter (nltk absent)'}")
+    card, card_values, update_ms, compute_ms = _text_run(data, device)
+    cpu, cpu_values, _, _ = _text_run(data, "cpu")
+    for name, m in card.items():
+        for k, v in m._state.items():
+            assert all(x.device == device for x in (v if isinstance(v, list) else [v])), f"{name}.{k} is not on the card"
+            w = cpu[name]._state[k]
+            if isinstance(v, list):
+                assert torch.equal(torch.cat(v).cpu(), torch.cat(w)), f"{name}.{k}: per-sentence values differ"
+            else:
+                assert torch.equal(v.cpu(), w), f"{name}.{k} differs between the card and the CPU"
+    assert torch.equal(card_values["wer"].cpu(), cpu_values["wer"]), "wer value differs"
+    bleu_err = abs(float(card_values["bleu"]) - float(cpu_values["bleu"]))
+    assert bleu_err <= BLEU_RTOL * float(cpu_values["bleu"]), f"bleu: card vs CPU {bleu_err}"
+    rouge_errs = {k: abs(float(v) - float(cpu_values["rouge"][k])) for k, v in card_values["rouge"].items()}
+    for k, err in rouge_errs.items():
+        assert err <= ROUGE_MEAN_RTOL * float(cpu_values["rouge"][k]), f"rouge {k}: card vs CPU {err}"
+    words = sum(len(r.split()) for r in data["wer"][1])
+    assert float(card["wer"].total) == words and len(torch.cat(card["rouge"].rouge1_fmeasure)) == CNNDM_SUMMARIES
+    for name in card:
+        n = len(update_ms[name])
+        print(f"{name}: {n} updates, host ms per update median {np.median(update_ms[name]):.3f} (max "
+              f"{max(update_ms[name]):.3f}), {sum(update_ms[name]) / 1e3:.2f} s in all; compute() "
+              f"{compute_ms[name][0]:.3f} ms the first time, {compute_ms[name][1]:.3f} ms again")
+    print(f"WER {float(card_values['wer']):.6f} over {words} reference words (states and value equal to the CPU "
+          f"run); BLEU {float(card_values['bleu']):.6f} (states equal; value card vs CPU {bleu_err:.3e}, bound "
+          f"{BLEU_RTOL:.1e} relative); ROUGE per-sentence states equal to the CPU run, means "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in card_values["rouge"].items() if k.endswith("fmeasure"))
+          + f" (max card vs CPU {max(rouge_errs.values()):.3e}, bound {ROUGE_MEAN_RTOL:.1e} relative)")
+    return data
+
+
+def _bert_base_weights(seed=0):
+    """A random bert-base-uncased-width state dict in HF ``BertModel``
+    layout, ``bert.``-prefixed, with a pooler the loader ignores, from a
+    seeded ``torch.Generator``: weights and biases N(0, 0.02), layer-norm
+    scales 1 + N(0, 0.02)."""
+    from metrics_tpu_torch.models.bert import BertConfig
+
+    cfg = BertConfig(**BERT_BASE)
+    d, inter = cfg.hidden_size, cfg.intermediate_size
+    shapes = {"embeddings.word_embeddings.weight": (cfg.vocab_size, d),
+              "embeddings.position_embeddings.weight": (cfg.max_position_embeddings, d),
+              "embeddings.token_type_embeddings.weight": (cfg.type_vocab_size, d),
+              "embeddings.LayerNorm.weight": (d,), "embeddings.LayerNorm.bias": (d,)}
+    for i in range(cfg.num_hidden_layers):
+        for name, shape in (("attention.self.query", (d, d)), ("attention.self.key", (d, d)),
+                            ("attention.self.value", (d, d)), ("attention.output.dense", (d, d)),
+                            ("intermediate.dense", (inter, d)), ("output.dense", (d, inter))):
+            shapes[f"encoder.layer.{i}.{name}.weight"], shapes[f"encoder.layer.{i}.{name}.bias"] = shape, shape[:1]
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            shapes[f"encoder.layer.{i}.{name}.weight"] = shapes[f"encoder.layer.{i}.{name}.bias"] = (d,)
+    shapes["pooler.dense.weight"] = (d, d)
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        w = torch.randn(shape, generator=gen) * 0.02
+        sd["bert." + k] = w + 1 if k.endswith("LayerNorm.weight") else w
+    return cfg, sd
+
+
+def _last_hidden(model, batch):
+    return model(batch["input_ids"], batch["attention_mask"])[-1]
+
+
+def _bert_errs(got, want):
+    return {k: float(np.abs(np.asarray(got[k]) - np.asarray(want[k])).max()) for k in ("precision", "recall", "f1")}
+
+
+def _bertscore_phase(device, data):
+    """BERTScore over 3,000 newstest-size pairs through a bert-base-width
+    encoder (random weights loaded through ``load_torch_bert_weights``), in
+    30 update steps, and the default encoder with ``idf=True``; encoder
+    sentences/s; compute() timed and profiled; the first 64 pairs against
+    the port on the CPU; identical pairs, swapped sides and TF32."""
+    import metrics_tpu_torch.functional.text.bert as bs_mod
+    import metrics_tpu_torch.models.bert as bert_mod
+    from metrics_tpu_torch import BERTScore
+    from metrics_tpu_torch.models.bert import BertEncoder
+
+    hyps, refs = data["bert"]
+    t0 = time.perf_counter()
+    cfg, sd = _bert_base_weights()
+    enc = BertEncoder(cfg, weights=sd, device=device)
+    enc_cpu = BertEncoder(cfg, weights=sd, device="cpu")
+    del sd
+    params = sum(p.numel() for p in enc.parameters())
+    assert all(p.device == device for p in enc.parameters()), "the encoder is not on the card"
+    print(f"bert-base-width encoder ({cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, {params} parameters) "
+          f"loaded on the card and the CPU in {time.perf_counter() - t0:.2f} s")
+
+    # the encoder alone: CUDA events over forwards of 64 sentences of 128 tokens
+    tok = bs_mod.SimpleTokenizer(max_length=BERT_MAX_LEN)(hyps[:BERT_BATCH])
+    ids, mask = (torch.as_tensor(tok[k], device=device) for k in ("input_ids", "attention_mask"))
+    enc(ids, mask)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ENCODER_REPS):
+        enc(ids, mask)
+    end.record()
+    torch.cuda.synchronize()
+    fwd_ms = start.elapsed_time(end) / ENCODER_REPS
+    print(f"encoder forward of [{BERT_BATCH}, {BERT_MAX_LEN}] float32 (TF32 off): {fwd_ms:.3f} ms by CUDA events "
+          f"(mean of {ENCODER_REPS}), {BERT_BATCH / fwd_ms * 1e3:.1f} sentences/s")
+
+    m = BERTScore(model=enc, user_forward_fn=_last_hidden, max_length=BERT_MAX_LEN, batch_size=BERT_BATCH,
+                  device=device)
+    assert m.model is enc and not list(m.children())
+    step = NEWSTEST_SEGMENTS // BERT_STEPS
+    update_ms = []
+    for i in range(0, NEWSTEST_SEGMENTS, step):
+        t0 = time.perf_counter()
+        m.update(hyps[i:i + step], refs[i:i + step])
+        torch.cuda.synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+    for name in ("preds_input_ids", "target_attention_mask"):
+        state = getattr(m, name)
+        assert all(s.device == device and s.dtype == torch.int32 and s.shape == (step, BERT_MAX_LEN) for s in state)
+    values, prof = _profile_call(lambda: _fresh(m), reps=1)
+    print(f"{BERT_STEPS} updates of {step} pairs: host ms per update median {np.median(update_ms):.3f} (tokenizing "
+          f"and one copy per state); compute() over {NEWSTEST_SEGMENTS} pairs ({2 * NEWSTEST_SEGMENTS} sentences): "
+          f"{2 * NEWSTEST_SEGMENTS / prof['event_ms'] * 1e3:.1f} sentences/s end to end")
+    _print_profile(f"BERTScore over {NEWSTEST_SEGMENTS} pairs", prof)
+    f1 = np.asarray(values["f1"])
+    assert f1.shape == (NEWSTEST_SEGMENTS,) and np.isfinite(f1).all()
+
+    # the first 64 pairs against the port on the CPU, with the TF32 flags
+    # off and on; then without the float32 guard and TF32 on
+    kw = dict(user_forward_fn=_last_hidden, max_length=BERT_MAX_LEN, batch_size=BERT_BATCH)
+    n = BERT_CHECK_PAIRS
+    t0 = time.perf_counter()
+    want = bs_mod.bert_score(hyps[:n], refs[:n], model=enc_cpu, device="cpu", **kw)
+    cpu_s = time.perf_counter() - t0
+    del enc_cpu
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    got = {}
+    try:
+        for flags in ((False, False), (True, True)):
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+            got[flags] = bs_mod.bert_score(hyps[:n], refs[:n], model=enc, device=device, **kw)
+        guards = (bert_mod.full_float32, bs_mod.full_float32)
+        bert_mod.full_float32 = bs_mod.full_float32 = contextlib.nullcontext
+        try:
+            unguarded = bs_mod.bert_score(hyps[:n], refs[:n], model=enc, device=device, **kw)
+        finally:
+            bert_mod.full_float32, bs_mod.full_float32 = guards
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    errs = _bert_errs(got[(False, False)], want)
+    assert max(errs.values()) <= BERT_ATOL, f"BERTScore, {n} pairs card vs CPU: {errs} > {BERT_ATOL}"
+    assert got[(True, True)] == got[(False, False)], "BERTScore moved with TF32 switched on outside the guard"
+    in_metric = _bert_errs({k: v[:n] for k, v in values.items()}, got[(False, False)])
+    assert max(in_metric.values()) <= BERT_ATOL, in_metric
+    unguarded_err = max(_bert_errs(unguarded, want).values())
+    print(f"first {n} pairs, card vs the port on the CPU ({cpu_s:.1f} s on the host): max abs err {errs} (bound "
+          f"{BERT_ATOL:.3e}); equal with TF32 switched on outside the guard; the metric's own first {n} "
+          f"within {max(in_metric.values()):.3e} of them; without the guard, TF32 on: {unguarded_err:.3e} "
+          f"({unguarded_err / BERT_ATOL:.1f}x the bound)")
+
+    same = np.arange(0, NEWSTEST_SEGMENTS, 10)
+    f1_err = float(np.abs(f1[same] - 1).max())
+    assert f1_err <= BERT_ATOL, f"identical pairs: F1 off 1 by {f1_err}"
+    swapped = bs_mod.bert_score(
+        {"input_ids": torch.cat(m.target_input_ids), "attention_mask": torch.cat(m.target_attention_mask)},
+        {"input_ids": torch.cat(m.preds_input_ids), "attention_mask": torch.cat(m.preds_attention_mask)},
+        model=enc, device=device, **kw)
+    swap_err = max(float(np.abs(np.asarray(swapped["precision"]) - np.asarray(values["recall"])).max()),
+                   float(np.abs(np.asarray(swapped["recall"]) - np.asarray(values["precision"])).max()))
+    assert swap_err <= BERT_ATOL, f"swapping the sides: P and R off by {swap_err}"
+    print(f"all {NEWSTEST_SEGMENTS} pairs: mean F1 {f1.mean():.6f}; the {len(same)} identical pairs' F1 within "
+          f"{f1_err:.3e} of 1; swapping the sides swaps P and R within {swap_err:.3e}")
+    del m, enc, values, swapped
+
+    # the default encoder (the JAX package's BertConfig(), bert_init weights), idf=True
+    t0 = time.perf_counter()
+    m = _quiet(lambda: BERTScore(max_length=BERT_MAX_LEN, batch_size=BERT_BATCH, idf=True, device=device))
+    for i in range(0, NEWSTEST_SEGMENTS, step):
+        m.update(hyps[i:i + step], refs[i:i + step])
+    values, prof = _profile_call(lambda: _quiet(lambda: _fresh(m)), reps=1)
+    default_s = time.perf_counter() - t0
+    assert np.isfinite(values["f1"]).all() and len(values["f1"]) == NEWSTEST_SEGMENTS
+    want = _quiet(lambda: bs_mod.bert_score(hyps[:n], refs[:n], idf=True, device="cpu", **dict(kw, user_forward_fn=None)))
+    got = _quiet(lambda: bs_mod.bert_score(hyps[:n], refs[:n], idf=True, device=device, **dict(kw, user_forward_fn=None)))
+    errs = _bert_errs(got, want)
+    assert max(errs.values()) <= BERT_ATOL, f"default BERTScore, {n} pairs card vs CPU: {errs}"
+    print(f"default encoder, idf=True: {NEWSTEST_SEGMENTS} pairs in {default_s:.2f} s with its bert_init on the card; "
+          f"mean F1 {np.mean(values['f1']):.6f}; first {n} pairs card vs CPU max abs err {errs}")
+    _print_profile(f"default BERTScore(idf=True) over {NEWSTEST_SEGMENTS} pairs", prof)
+    del m
+
+
+def _wsj_step(spk, step, device):
+    """One step of 100 mixtures of ``spk`` speakers at 8 kHz cut to 32,000
+    samples, from RandomState(40 + 10 * spk + step): 16-bit PCM sources,
+    drawn as bytes, scaled on the device; each estimate is one source (a
+    random permutation) plus 0.2 of the next and 0.3 of 16-bit noise."""
+    rng = np.random.RandomState(40 + 10 * spk + step)
+    batch = HUNGARIAN_MIXTURES if spk == HUNGARIAN_SPK else WSJ_STEP
+    shape = (batch, spk, WSJ_SAMPLES)
+    size = int(np.prod(shape)) * 2
+    src = torch.frombuffer(bytearray(rng.bytes(size)), dtype=torch.int16).reshape(shape)
+    noise = torch.frombuffer(bytearray(rng.bytes(size)), dtype=torch.int16).reshape(shape)
+    perm = torch.from_numpy(np.argsort(rng.rand(batch, spk), axis=1))
+    target = src.to(device).to(torch.float32) / 32768
+    perm = perm.to(device)
+    index = perm[:, :, None].expand(shape)
+    nxt = torch.roll(perm, 1, dims=1)[:, :, None].expand(shape)
+    est = torch.gather(target, 1, index) + torch.gather(target, 1, nxt) * 0.2
+    est = est + (noise.to(device).to(torch.float32) / 32768) * 0.3
+    return est, target
+
+
+def _audio_metrics(dev):
+    from metrics_tpu_torch import PIT, SI_SDR, SI_SNR, SNR
+    from metrics_tpu_torch.functional.audio import si_sdr
+
+    return {"pit": PIT(si_sdr, "max", device=dev), "si_sdr": SI_SDR(device=dev), "si_snr": SI_SNR(device=dev),
+            "snr": SNR(device=dev)}
+
+
+def _audio_step(metrics, est, target):
+    """PIT(si_sdr) on the estimates, then SI-SDR, SI-SNR and SNR on the
+    estimates put in PIT's order; returns the permutation."""
+    from metrics_tpu_torch.functional.audio import pit, pit_permutate, si_sdr
+
+    metrics["pit"].update(est, target)
+    _, perm = pit(est, target, si_sdr, "max")
+    permuted = pit_permutate(est, perm)
+    for name in ("si_sdr", "si_snr", "snr"):
+        metrics[name].update(permuted, target)
+    return perm
+
+
+def _pit_margins(est, target):
+    """Per mixture, the gap between the best and the second best
+    permutation's mean SI-SDR (float32, on the host); read where the card's
+    and the CPU's permutations differ."""
+    from metrics_tpu_torch.functional.audio import si_sdr
+    from metrics_tpu_torch.functional.audio.pit import _metric_matrix, _perm_table
+
+    mtx = _metric_matrix(est, target, si_sdr)
+    spk = mtx.shape[-1]
+    perms = _perm_table(spk, mtx.device)
+    scores = torch.sort(mtx[:, torch.arange(spk)[None, :], perms].mean(-1), dim=-1).values
+    return scores[:, -1] - scores[:, -2]
+
+
+def _audio_phase(device):
+    """PIT(si_sdr) and SI-SDR, SI-SNR, SNR on PIT's order at WSJ0-2mix and
+    wsj0-3mix test size (3,000 mixtures of 32,000 samples each, 30 steps of
+    100), and one batch of 8 speakers through the host Hungarian solve;
+    step ms and idle share; against the same run on the CPU."""
+    for spk, mixtures in ((2, WSJ_MIXTURES), (3, WSJ_MIXTURES), (HUNGARIAN_SPK, HUNGARIAN_MIXTURES)):
+        steps = 1 if spk == HUNGARIAN_SPK else mixtures // WSJ_STEP
+        card, cpu = _audio_metrics(device), _audio_metrics("cpu")
+        _audio_step(_audio_metrics(device), *_wsj_step(spk, 0, device))  # warm-up
+        step_ms, ties, data_s = [], 0, 0.0
+        for step in range(steps):
+            t0 = time.perf_counter()
+            est, target = _wsj_step(spk, step, device)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            perm = _audio_step(card, est, target)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            data_s += t1 - t0
+            est_cpu, target_cpu = _wsj_step(spk, step, "cpu")
+            assert torch.equal(est.cpu(), est_cpu), "the estimates differ between the card and the CPU"
+            perm_cpu = _audio_step(cpu, est_cpu, target_cpu)
+            differ = (perm.cpu() != perm_cpu).any(-1)
+            if bool(differ.any()):  # allowed only where two permutations tie within the bound
+                ties += int(differ.sum())
+                margin = _pit_margins(est_cpu[differ], target_cpu[differ])
+                assert bool((margin <= 2 * AUDIO_DB_ATOL).all()), \
+                    f"{spk} speakers: permutations differ where the best leads by {margin.max()} dB"
+        for name, m in card.items():
+            assert all(v.device == device for v in m._state.values()), f"{name}: a state is not on the card"
+            c = cpu[name]
+            assert int(m.total) == int(c.total) == mixtures * (1 if name == "pit" else spk), name
+            sum_name = next(k for k in c._state if k != "total")
+            got, want = float(getattr(m, sum_name)), float(getattr(c, sum_name))
+            # per-value bounds of every value, plus each side's float32
+            # accumulation: a sum over a step's values, then the steps
+            sum_bound = float(c.total) * AUDIO_DB_ATOL + 2 * (np.log2(WSJ_STEP) + steps) * 2.0 ** -24 * abs(want)
+            assert abs(got - want) <= sum_bound, f"{spk} speakers, {name}: sum card vs CPU {abs(got - want)}"
+            value_err = abs(float(m.compute()) - float(c.compute()))
+            assert value_err <= sum_bound / float(c.total) + 2.0 ** -23 * abs(want / float(c.total)), (name, value_err)
+        print(f"{spk} speakers ({'Hungarian, host' if spk > 6 else 'exhaustive'} search), {mixtures} mixtures of "
+              f"{WSJ_SAMPLES} samples in {steps} step(s): step median {np.median(step_ms):.3f} ms (max "
+              f"{max(step_ms):.3f}); data made and moved in {data_s:.2f} s; "
+              + ", ".join(f"{k} {float(m.compute()):.4f} dB" for k, m in card.items())
+              + f"; states within their bounds of the CPU run, counts equal; permutations equal to the CPU's in "
+              f"{mixtures - ties} of {mixtures} mixtures, the {ties} others tied within {2 * AUDIO_DB_ATOL:.1e} dB")
+        est, target = _wsj_step(spk, 0, device)
+        _step_profile(lambda: _audio_step(card, est, target), float(np.median(step_ms)), top=4)
+        del card, cpu, est, target
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -2302,8 +2836,24 @@ def main() -> int:
            f"on the first {SSIM_CHECK_STEPS} steps")
     _image_ssim_phase(device)
 
+    _phase(f"text: WER ({LIBRISPEECH_UTTERANCES} LibriSpeech test-clean-size utterances), BLEU ({NEWSTEST_SEGMENTS} "
+           f"newstest-size segments), ROUGE (rouge1/2/L/Lsum, stemmed, {CNNDM_SUMMARIES} CNN/DailyMail-size "
+           "summaries); against the CPU run")
+    text_data = _text_phase(device)
+
+    _phase(f"bertscore: BERTScore over {NEWSTEST_SEGMENTS} newstest-size pairs through a bert-base-width encoder "
+           f"(random weights, max_length {BERT_MAX_LEN}, batch {BERT_BATCH}), and the default encoder with idf; "
+           f"CPU check on {BERT_CHECK_PAIRS} pairs")
+    _bertscore_phase(device, text_data)
+    del text_data
+
+    _phase(f"audio: PIT(si_sdr), SI-SDR, SI-SNR, SNR at WSJ0-2mix and wsj0-3mix test size ({WSJ_MIXTURES} mixtures of "
+           f"{WSJ_SAMPLES} samples, {WSJ_MIXTURES // WSJ_STEP} steps of {WSJ_STEP}) and {HUNGARIAN_MIXTURES} "
+           f"mixtures of {HUNGARIAN_SPK} speakers (Hungarian); against the CPU run")
+    _audio_phase(device)
+
     _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking, regression and retrieval "
-           "collections, divergence cases, and an elastic resume of the ranks' shards into one process")
+           "collections, the text metrics and BERTScore, divergence cases, and an elastic resume of the ranks' shards into one process")
     _sync_phase(device, report_gpu, report_values, (reg_gpu, reg_values, reg_bounds),
                 retrieval_runs["capacity"]["values"])
     del retrieval_runs

@@ -11,6 +11,7 @@ raises.
 """
 __version__ = "0.1.0"
 
+from metrics_tpu_torch.audio import PIT, SI_SDR, SI_SNR, SNR
 from metrics_tpu_torch.classification import (
     AUC,
     AUROC,
@@ -65,6 +66,7 @@ from metrics_tpu_torch.regression import (
     SymmetricMeanAbsolutePercentageError,
     TweedieDevianceScore,
 )
+from metrics_tpu_torch.text import WER, BERTScore, BLEUScore, ROUGEScore
 
 __all__ = [
     "AUC",
@@ -72,6 +74,8 @@ __all__ = [
     "Accuracy",
     "AverageMeter",
     "AveragePrecision",
+    "BERTScore",
+    "BLEUScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
@@ -99,12 +103,14 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "PIT",
     "PSNR",
     "PearsonCorrcoef",
     "Precision",
     "PrecisionRecallCurve",
     "R2Score",
     "ROC",
+    "ROUGEScore",
     "Recall",
     "RetrievalCollection",
     "RetrievalFallOut",
@@ -114,12 +120,16 @@ __all__ = [
     "RetrievalNormalizedDCG",
     "RetrievalPrecision",
     "RetrievalRecall",
+    "SI_SDR",
+    "SI_SNR",
+    "SNR",
     "SSIM",
     "SpearmanCorrcoef",
     "Specificity",
     "StatScores",
     "SymmetricMeanAbsolutePercentageError",
     "TweedieDevianceScore",
+    "WER",
     "load_checkpoint",
     "prune_checkpoints",
     "save_checkpoint",

@@ -1,3 +1,4 @@
+from metrics_tpu_torch.models.bert import BertConfig, BertEncoder, load_torch_bert_weights
 from metrics_tpu_torch.models.inception import (
     InceptionFeatureExtractor,
     InceptionV3,
@@ -6,9 +7,12 @@ from metrics_tpu_torch.models.inception import (
 from metrics_tpu_torch.models.lpips_net import LPIPSNetwork, load_torch_lpips_weights
 
 __all__ = [
+    "BertConfig",
+    "BertEncoder",
     "InceptionFeatureExtractor",
     "InceptionV3",
     "LPIPSNetwork",
+    "load_torch_bert_weights",
     "load_torch_inception_weights",
     "load_torch_lpips_weights",
 ]

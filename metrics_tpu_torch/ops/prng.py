@@ -1,4 +1,4 @@
-"""``jax.random``'s key, split and permutation, bit for bit, in torch.
+"""``jax.random``'s key, split, permutation and normal draws, in torch.
 
 KID draws its subsets and IS its shuffle with ``jax.random`` in the JAX
 package (``metrics_tpu/image/kid.py:141-150``, ``image/inception.py:77``);
@@ -9,11 +9,14 @@ two uint32 words, ``split`` hashes the 64-bit iota counters under the key,
 32-bit random bits are the XOR of the two hashed words, and a permutation
 is ``ceil(3·ln(n)/ln(2**32-1))`` rounds of a split and a stable sort by
 fresh bits. uint32 words are held in int64 and masked to 32 bits, on the
-device of the caller's choice.
+device of the caller's choice. Keys, splits, bits and permutations are bit
+for bit; a float32 ``normal`` is JAX's uniform-to-normal map through XLA's
+own ``ErfInv`` polynomial, within 4 ulps of ``jax.random.normal``.
 """
 import math
 from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -89,3 +92,36 @@ def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
         order = torch.sort(random_bits(subkey, n), dim=-1, stable=True).indices
         x = torch.gather(x, -1, order)
     return x
+
+
+# XLA's float32 ErfInv (M. Giles, "Approximating the erfinv function"):
+# degree-8 polynomials in w = -log1p(-x^2), one for w < 5 and one beyond
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06, 0.00021858087,
+                 -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844, 0.00573950773,
+                 -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 ``ErfInv`` for ``|x| < 1``; ``torch.erfinv`` differs from
+    it by up to ~65 ulps in the tails."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    coeffs = torch.tensor([_ERFINV_SMALL, _ERFINV_LARGE], dtype=torch.float32, device=x.device)
+    p = torch.where(small, coeffs[0, 0], coeffs[1, 0])
+    for i in range(1, len(_ERFINV_SMALL)):
+        p = torch.where(small, coeffs[0, i], coeffs[1, i]) + p * w
+    return p * x
+
+
+def normal(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32 for one key ``[2]``:
+    32-bit random bits, their top 23 as the mantissa of a float in [1, 2),
+    minus 1, scaled to ``[nextafter(-1, 0), 1)``, then ``sqrt(2) * erfinv``."""
+    bits = random_bits(key, math.prod(shape))
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    span = float(np.float32(1.0) - lo)  # 2 - 2**-24 rounds to 2.0 in float32, as in JAX
+    u = torch.clamp_min(floats * span + float(lo), float(lo))
+    return (float(np.float32(np.sqrt(2.0))) * _erfinv_f32(u)).reshape(shape)

@@ -8,6 +8,8 @@ files across the two packages:
   of numpy batches) loads into the port and computes the JAX value: int32
   counts into int64 states, a grouped collection's aliases, a CatBuffer with
   its overflow flag, retrieval list states, and bfloat16 ``set_dtype`` states;
+  the text and audio families' float32 sums, PIT's int32 count, BERTScore's
+  int32 token cat states and ROUGE's per-sentence cat lists;
 - a file the port writes round-trips bit for bit (bfloat16 included), and
   the JAX loader refuses it with ``StateSchemaError`` naming
   ``int64 (saved) vs int32 (target)``.
@@ -968,6 +970,89 @@ def test_port_written_file_round_trips_bit_for_bit(tmp_path, name):
     value, value2 = m.compute(), m2.compute()
     for k in value if isinstance(value, dict) else [None]:
         assert torch.equal(value[k] if k else value, value2[k] if k else value2)
+
+
+TEXT_PREDS = ["the cat sat on the mat. it was happy!", "hello there general kenobi", "a b c d"]
+TEXT_REFS = ["a cat sat on a mat. it was glad.", "hello there master kenobi", "a c d b"]
+XAUDIO = np.random.RandomState(18).randn(3, 2, 4, 2, 32).astype(np.float32)
+XEMB = np.random.RandomState(19).randn(30522, 8).astype(np.float32)
+
+
+def _jax_text_cases():
+    """name -> (JAX factory, port factory, feed(metric, to_array), states)
+    for the text and audio families: float32 sums, int32 counts, int32
+    token cat states and ROUGE's per-sentence cat lists."""
+
+    def text(m, _arr):
+        m.update(TEXT_PREDS, TEXT_REFS)
+
+    def bleu(m, _arr):
+        m.update([[r.split()] for r in TEXT_REFS], [p.split() for p in TEXT_PREDS])
+
+    def audio(m, arr):
+        for i in range(3):
+            m.update(arr(XAUDIO[i, 0]), arr(XAUDIO[i, 1]))
+
+    def jax_embed(input_ids, attention_mask):
+        return jnp.asarray(XEMB)[input_ids]
+
+    def port_embed(input_ids, attention_mask):
+        return torch.from_numpy(XEMB)[input_ids.long()]
+
+    from metrics_tpu.functional.audio import si_sdr as ref_si_sdr
+    from metrics_tpu_torch.functional.audio import si_sdr as port_si_sdr
+
+    return {
+        "wer": (ref.WER, lambda: port.WER(**CPU), text, ("errors", "total")),
+        "bleu": (ref.BLEUScore, lambda: port.BLEUScore(**CPU), bleu, ("numerator", "denominator", "trans_len", "ref_len")),
+        "rouge": (lambda: ref.ROUGEScore(use_stemmer=True), lambda: port.ROUGEScore(use_stemmer=True, **CPU), text,
+                  ("rouge1_fmeasure", "rougeLsum_recall")),
+        "bertscore": (lambda: ref.BERTScore(model=jax_embed, max_length=16),
+                      lambda: port.BERTScore(model=port_embed, max_length=16, **CPU), text,
+                      ("preds_input_ids", "target_attention_mask")),
+        "pit": (lambda: ref.PIT(ref_si_sdr), lambda: port.PIT(port_si_sdr, **CPU), audio, ("sum_pit_metric", "total")),
+    }
+
+
+# values from equal states: WER one float32 division (exact); BLEU float32
+# log and exp (an ulp apart: 4 * 2**-24 relative); ROUGE means of 3 float32
+# values; BERTScore greedy maxima of float32 cosines; PIT one float32 division
+TEXT_RTOL = {"wer": 0.0, "bleu": 4 * 2.0 ** -24, "rouge": 4 * 2.0 ** -24, "bertscore": 1e-6, "pit": 1e-7}
+
+
+@pytest.fixture(scope="module")
+def jax_text_files(tmp_path_factory):
+    root = tmp_path_factory.mktemp("jax_text_ckpt")
+    out = {}
+    for name, (make_ref, _make_port, feed, states) in _jax_text_cases().items():
+        m = make_ref()
+        feed(m, jnp.asarray)
+        ref.save_checkpoint(m, str(root / name), rank=0, world=1)
+        out[name] = (m.compute(), {k: getattr(m, k) for k in states})
+    return root, out
+
+
+@pytest.mark.parametrize("name", list(_jax_text_cases()))
+def test_jax_text_and_audio_files_load_and_compute_the_jax_value(jax_text_files, name):
+    root, values = jax_text_files
+    want, want_states = values[name]
+    m = load_checkpoint(_jax_text_cases()[name][1](), str(root / name), rank=0, world=1)
+    for k, v in want_states.items():
+        got = getattr(m, k)
+        if isinstance(v, list):  # cat states: the JAX package's per-update arrays, as they were
+            assert len(got) == len(v)
+            for g, w in zip(got, v):
+                assert g.dtype == {np.dtype("int32"): torch.int32, np.dtype("float32"): torch.float32}[np.asarray(w).dtype]
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        else:
+            integer = np.issubdtype(np.asarray(v).dtype, np.integer)
+            assert got.dtype == (torch.int64 if integer else torch.float32)  # int32 counts widen
+            np.testing.assert_array_equal(got.numpy(), np.asarray(v))
+    got = m.compute()
+    for k in want if isinstance(want, dict) else [None]:
+        g, w = (got[k], want[k]) if k else (got, want)
+        np.testing.assert_allclose(np.asarray(g, dtype=np.float64), np.asarray(w, dtype=np.float64),
+                                   rtol=TEXT_RTOL[name], atol=1e-7 if name == "bertscore" else 0, err_msg=str(k))
 
 
 def test_jax_loader_refuses_port_files(tmp_path):

@@ -135,6 +135,24 @@ DOCTEST_MODULES = [
     "metrics_tpu_torch.functional.retrieval.precision",
     "metrics_tpu_torch.functional.retrieval.recall",
     "metrics_tpu_torch.functional.retrieval.reciprocal_rank",
+    "metrics_tpu_torch.functional.audio.snr",
+    "metrics_tpu_torch.functional.audio.si_sdr",
+    "metrics_tpu_torch.functional.audio.si_snr",
+    "metrics_tpu_torch.functional.audio.pit",
+    "metrics_tpu_torch.audio.snr",
+    "metrics_tpu_torch.audio.si_sdr",
+    "metrics_tpu_torch.audio.si_snr",
+    "metrics_tpu_torch.audio.pit",
+    "metrics_tpu_torch.functional.text.wer",
+    "metrics_tpu_torch.functional.text.bleu",
+    "metrics_tpu_torch.functional.text.rouge",
+    "metrics_tpu_torch.functional.text.bert",
+    "metrics_tpu_torch.functional.nlp",
+    "metrics_tpu_torch.text.wer",
+    "metrics_tpu_torch.text.bleu",
+    "metrics_tpu_torch.text.rouge",
+    "metrics_tpu_torch.text.bert",
+    "metrics_tpu_torch.models.bert",
 ]
 
 
@@ -203,6 +221,15 @@ DEFAULT_DEVICE_CASES = {
     "KID": lambda **kw: port.KID(_identity, **kw),
     "IS": lambda **kw: port.IS(_identity, **kw),
     "LPIPS": lambda **kw: port.LPIPS(net=_identity, **kw),
+    "SNR": lambda **kw: port.SNR(**kw),
+    "SI_SDR": lambda **kw: port.SI_SDR(**kw),
+    "SI_SNR": lambda **kw: port.SI_SNR(**kw),
+    "PIT": lambda **kw: port.PIT(_identity, **kw),
+    "WER": lambda **kw: port.WER(**kw),
+    "BLEUScore": lambda **kw: port.BLEUScore(**kw),
+    "ROUGEScore": lambda **kw: port.ROUGEScore(**kw),
+    # a callable model: the built-in encoder is built at compute() on the metric's device
+    "BERTScore": lambda **kw: port.BERTScore(model=_identity, **kw),
 }
 
 

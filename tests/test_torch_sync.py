@@ -55,6 +55,23 @@ def _report():
     })
 
 
+TEXT_PREDS = ["the cat sat on the mat. it was happy!", "hello there general kenobi", "a b c d",
+              "one two three. four five!", "same words here"]
+TEXT_REFS = ["a cat sat on a mat. it was glad.", "hello there master kenobi", "a c d b",
+             "one two. three four five?", "same words here"]
+TEXT_SHARES = {0: (0, 2), 1: (2, 5)}
+TEXT_EMB = np.random.RandomState(7).randn(30522, 8).astype(np.float32)
+
+
+def _embed(input_ids, attention_mask):
+    return torch.from_numpy(TEXT_EMB)[input_ids.long()]
+
+
+def _text_metrics():
+    return (port.BERTScore(model=_embed, max_length=16, idf=True, device="cpu"),
+            port.ROUGEScore(use_stemmer=True, device="cpu"))
+
+
 def _worker(rank, world, port_no, out_dir):
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world, rank=rank)
     try:
@@ -122,6 +139,15 @@ def _worker(rank, world, port_no, out_dir):
         finally:
             sync_mod._all_gather = raw
         result["report_collectives"] = len(calls)
+
+        # BERTScore's int32 token cat states and ROUGE's per-sentence cat
+        # lists: each rank its own sentences, gathered in rank order
+        bertscore, rouge = _text_metrics()
+        share = slice(*TEXT_SHARES[rank])
+        bertscore.update(TEXT_PREDS[share], TEXT_REFS[share])
+        rouge.update(TEXT_PREDS[share], TEXT_REFS[share])
+        result["bertscore"], result["rouge"] = bertscore.compute(), rouge.compute()
+        result["bertscore_local_rows"] = len(torch.cat(bertscore.preds_input_ids))
 
         # schema-divergent ranks: num_classes 10 against 12, and a scalar
         # (micro) state against a [C] (macro) one
@@ -220,3 +246,19 @@ def test_grouped_report_collection_syncs_once_through_the_fused_path(two_rank_re
 def test_schema_divergent_ranks_raise_state_divergence_on_every_rank(two_rank_results):
     for case in ("num_classes", "state_rank"):
         assert [r[case] for r in two_rank_results] == ["StateDivergenceError"] * 2, case
+
+
+def test_bertscore_and_rouge_cat_states_sync_to_one_process(two_rank_results):
+    """BERTScore's token states and ROUGE's cat lists gathered from two
+    ranks (2 and 3 sentences) score as one process over all 5, on every
+    rank: the same token rows in the same order, so equal values."""
+    bertscore, rouge = _text_metrics()
+    bertscore.update(TEXT_PREDS, TEXT_REFS)
+    rouge.update(TEXT_PREDS, TEXT_REFS)
+    want_bs, want_rouge = bertscore.compute(), rouge.compute()
+    for rank, result in enumerate(two_rank_results):
+        assert result["bertscore"] == want_bs, rank
+        assert sorted(result["rouge"]) == sorted(want_rouge)
+        for key, v in want_rouge.items():
+            assert torch.equal(result["rouge"][key], v), (rank, key)
+        assert result["bertscore_local_rows"] == TEXT_SHARES[rank][1] - TEXT_SHARES[rank][0]
