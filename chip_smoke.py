@@ -60,7 +60,13 @@
    metrics on the card (states bit-equal, ``compute()`` equal), times save
    (device-to-host copy, CRC, write + fsync) and load, and holds a file with
    one flipped payload byte to ``CheckpointCorruptError`` with the target's
-   states unchanged;
+   states unchanged; ``telemetry()['checkpoint']`` counts the saves and the
+   verified load;
+   telemetry: the flagship collection with the journal off and on (the step's
+   time, its ``cudaStreamSynchronize`` count, equal both ways, and its
+   events), a journaled save/prune/load, the journal exported as a Chrome
+   trace and read back, ``telemetry()``'s JSON-lines and Prometheus
+   encodings against the JAX package's schema, the host cost of a record;
 13. image-fid: FID (buffered and ``streaming=True``), KID (100 subsets of
    1,000) and IS (10 splits) through the fidelity Inception-v3 (random
    weights) at CIFAR-10 FID-10k size, 40 steps of 250 uint8 32x32 images
@@ -95,6 +101,14 @@
    steps of 100) and one batch of 8 speakers (the host Hungarian solve),
    against the CPU run (permutations equal wherever the best one leads by
    more than the values' bound); step ms and idle share;
+   wrappers: a bootstrapped confidence interval of ImageNet-1k val top-1
+   (``BootStrapper(Accuracy(num_classes=1000), num_bootstraps=100)``, 50,000
+   seeded [., 1000] scores in 25 updates of 2,000; Poisson and multinomial),
+   its first 5 updates against the CPU (keys, draws, every copy's states,
+   mean/std/quantile/raw), update ms and host reads; a ``MetricTracker`` over
+   10 epochs of 10,000 rows (best value and epoch equal to the CPU's);
+   ``embedding_similarity`` on a SimCLR batch (4,096 x 128, cosine, zero
+   diagonal, ``none`` and ``mean``) against the CPU, timed, peak memory;
 18. syncs on two ranks that share the card (``torch.multiprocessing`` spawn,
    gloo, every state on ``cuda:0``): each rank takes a contiguous half of the
    report batches, of the curves batches (AUROC + AveragePrecision with
@@ -112,6 +126,10 @@
    each rank saves its shard (``world=2``) of the report, ranking and
    retrieval collections, and the main process folds the two into one
    (``world=1``), held against the one-process runs: an elastic resume;
+   the journal is on in both ranks: equal ``(kind, label)`` sequences, one
+   ``sync.gather`` a sync round, the guarded collectives' time, the schema
+   divergence once in ``health`` and as ``health.failure`` on each rank,
+   both journals as one Chrome trace;
 19. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
@@ -1355,6 +1373,16 @@ def _checkpoint_phase(device, curves_mc, retrieval_rc):
             raised = f"{type(err).__name__}: {str(err).split(': ', 1)[-1]}"
         _assert_states_equal(before, target, "the target of the corrupted load")
         print(f"one payload byte flipped: raised {raised}; the target's states unchanged")
+        counts = {}
+        for name, metric in (("curves", curves_mc), ("retrieval", retrieval_rc)):
+            snap = metric.telemetry()
+            saved = snap.get("collection", snap)["checkpoint"]
+            snap = paths[name][2].telemetry()
+            loaded = snap.get("collection", snap)["checkpoint"]
+            assert (saved["saves"], saved["loads"]) == (1, 0), (name, saved)
+            assert (loaded["saves"], loaded["loads"]) == (0, 1), (name, loaded)  # the corrupted load counts none
+            counts[name] = {"saved": saved["saves"], "loaded": loaded["loads"]}
+        print(f"telemetry()['checkpoint'] counts each save and each verified load: {counts}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1396,7 +1424,18 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         torch.cuda.set_device(device)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world, rank=rank)
     try:
+        from metrics_tpu_torch import observability as obs
+
+        obs.enable()  # the journal of the whole phase, rank from the process group
         out = {"backend": dist.get_backend()}
+        rounds = []
+        raw_sync = sync_mod.host_sync_state
+
+        def counting_sync(*args, **kwargs):
+            rounds.append(kwargs.get("metric_name"))
+            return raw_sync(*args, **kwargs)
+
+        sync_mod.host_sync_state = counting_sync
         gathers = []
         raw = sync_mod._all_gather
 
@@ -1444,7 +1483,7 @@ def _sync_rank(rank, world, port_no, out_dir, device):
             values = mc.compute()  # syncs once, through the fused path
             out[name] = {"groups": mc.compute_group_keys, "fused": runs[True][0], "per_leaf": runs[False][0],
                          "compute_collectives": len(gathers), "states": runs[True][1],
-                         "values": {k: v.cpu() for k, v in values.items()}}
+                         "values": {k: v.cpu() for k, v in values.items()}, "sync_stats": mc.sync_stats()}
             if name != "regression":
                 # this rank's shard (rank and world from the process group)
                 save_checkpoint(mc, os.path.join(out_dir, "ckpt", name), step=0)
@@ -1523,11 +1562,13 @@ def _sync_rank(rank, world, port_no, out_dir, device):
             return m
 
         cases = {}
+        m = divergent(REPORT_CLASSES + rank)
         try:
-            divergent(REPORT_CLASSES + rank).compute()
+            m.compute()
             cases["num_classes"] = "no error"
         except StateDivergenceError as err:
             cases["num_classes"] = type(err).__name__
+        cases["num_classes_health"] = m.telemetry()["health"]
         for mode in ("local", "warn"):
             m = divergent(REPORT_CLASSES + rank)
             with warnings.catch_warnings(record=True) as caught:
@@ -1553,9 +1594,61 @@ def _sync_rank(rank, world, port_no, out_dir, device):
             cases["nonfinite"] = type(err).__name__
         out["cases"] = cases
         sync_mod._all_gather = raw
+        sync_mod.host_sync_state = raw_sync
+        out["rounds"] = len(rounds)
+        out["journal"] = [e.as_dict() for e in obs.events()]
+        out["process"] = obs.registry.process_snapshot()
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
+
+
+def _sync_journal_check(ranks):
+    """The two ranks' journals of the sync phase: equal ``(kind, label)``
+    sequences (lockstep); one ``sync.gather`` a round, the rounds each rank
+    ran; the guarded collectives' time from ``health.margin``; the blocking
+    rounds counted as the JAX package counts them (the ``sync`` domain's
+    round ledger is the overlapped path's, untouched by a blocking sync); the
+    schema divergence once in ``health`` and once as ``health.failure``;
+    both journals as one Chrome trace, one pid per rank."""
+    from metrics_tpu_torch.observability import Event, export_chrome_trace, registry
+
+    seqs = [[(e["kind"], e["label"]) for e in r["journal"]] for r in ranks]
+    assert seqs[0] == seqs[1], "the two ranks journaled different sequences"
+    idle = registry.DOMAIN_DEFAULTS["sync"]
+    report = []
+    for rank, r in enumerate(ranks):
+        journal = r["journal"]
+        gathers = sum(e["kind"] == "sync.gather" for e in journal)
+        assert gathers == r["rounds"] > 0, (rank, gathers, r["rounds"])
+        margins = [e for e in journal if e["kind"] == "health.margin"]
+        gather_s = sum(e["elapsed_s"] for e in margins)
+        assert gather_s > 0 and r["process"]["watchdog_margin_s"] > 0 and r["process"]["watchdog_fired"] == 0
+        for name in ("report", "ranking", "regression"):
+            stats = r[name]["sync_stats"]
+            assert stats["collection"] == idle and all(s == idle for s in stats["members"].values()), (name, stats)
+        failures = [e for e in journal if e["kind"] == "health.failure" and e["on_error"] == "raise"
+                    and e["error"] == "StateDivergenceError"]
+        assert len(failures) == 1, failures
+        assert r["cases"]["num_classes_health"]["errors"] == {"StateDivergenceError": 1}, r["cases"]
+        kinds = {}
+        for k, _ in seqs[rank]:
+            kinds[k] = kinds.get(k, 0) + 1
+        report.append(f"rank {rank}: {len(journal)} events {kinds}, {r['rounds']} sync rounds = {gathers} "
+                      f"sync.gather, {len(margins)} guarded collectives {gather_s * 1e3:.2f} ms on the host's clock")
+    base = {"ts", "rank", "step", "kind", "label"}
+    events = [Event(e["ts"], e["rank"], e["step"], e["kind"], e["label"], {k: v for k, v in e.items() if k not in base})
+              for r in ranks for e in r["journal"]]
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_trace_"), "sync_trace.json")
+    export_chrome_trace(path, events)
+    with open(path) as f:
+        trace = json.load(f)["traceEvents"]
+    assert {t["pid"] for t in trace} == set(range(SYNC_WORLD)) and all(t["ts"] >= 0 for t in trace if t["ph"] != "M")
+    os.remove(path)
+    print("journal on both ranks, equal (kind, label) sequences; " + "; ".join(report)
+          + f"; sync_stats() as the JAX package's blocking path (no overlapped round); the schema divergence once in "
+          f"health.errors and once as health.failure on each rank; Chrome trace of both ranks: {len(trace)} events, "
+          f"pids {sorted({t['pid'] for t in trace})}, no negative ts")
 
 
 def _sync_phase(device, report_gpu, report_values, regression, retrieval_values):
@@ -1727,6 +1820,7 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
           f"{[c['local']['warnings'] for c in cases]} (rank zero); on_error='warn' -> degraded on both, warnings "
           f"{[c['warn']['warnings'] for c in cases]}; one NaN on rank 1 under enable_check_finite() -> "
           f"{[c['nonfinite'] for c in cases]}")
+    _sync_journal_check(ranks)
 
 
 def _cifar_data():
@@ -2552,6 +2646,326 @@ def _audio_phase(device):
         del card, cpu, est, target
 
 
+# ---------------------------------------------------------------------------
+# telemetry and wrappers
+# ---------------------------------------------------------------------------
+
+#: The JAX package's telemetry schema (``metrics_tpu/observability/registry.py:46-121``):
+#: every key a snapshot of either package carries, domain by domain.
+JAX_TELEMETRY_KEYS = {
+    "compile": {"traces", "dispatches", "cache_hits", "steps_seen", "fallback"},
+    "sync": {"launched", "resolved", "stale_resolves", "degraded", "cancelled", "served_local", "gather_s",
+             "resolve_wait_s", "overlap_saved_s", "intra_tier_bytes", "inter_tier_bytes", "inter_tier_bytes_saved"},
+    "checkpoint": {"saves", "loads", "pruned_steps", "refused", "auto_snapshots"},
+    "health": {"sync_failures", "degraded", "errors"},
+    "plan": {"builds", "cache_hits", "invalidations", "invalidate_reasons", "fused_steps"},
+    "process": {"watchdog_fired", "channel_suspect_latched", "channel_resets", "channel_readmits",
+                "membership_transitions", "quorum_shrinks", "quorum_readmits", "suspect_episode_s",
+                "watchdog_margin_s", "adaptive_timeout_s", "channel_suspect"},
+}
+#: ImageNet-1k val top-1 bootstrapped: 50,000 images in 25 updates of 2,000.
+IMAGENET_VAL, BOOT_STEP, BOOT_COPIES, BOOT_CHECK_STEPS = 50_000, 2_000, 100, 5
+BOOT_QUANTILES = (0.025, 0.975)
+#: float32 mean/std/quantile of 100 copies, reduced in another order on the card
+BOOT_ATOL = 2 * (float(np.log2(BOOT_COPIES)) + 2) * 2.0 ** -24
+TRACKER_EPOCHS, TRACKER_ROWS = 10, 10_000
+#: a SimCLR batch: 2 x 2048 views, 128-wide projections
+SIMCLR_BATCH, SIMCLR_DIM = 4096, 128
+#: cosine similarity of unit rows: 128 products and their sum round once each
+#: (2 x 128 ulps), the normalisation a few more; a mean over 4096 entries adds
+#: log2(4096) roundings of its magnitude
+SIMILARITY_ATOL = (2 * SIMCLR_DIM + 6) * 2.0 ** -24
+SIMILARITY_MEAN_ATOL = (2 * SIMCLR_DIM + 6 + float(np.log2(SIMCLR_BATCH))) * 2.0 ** -24
+
+
+def _check_snapshot_encodings(snapshot):
+    """Both encodings of a collection's ``telemetry()`` parse, and every key
+    of the JAX package's schema is in each block."""
+    from metrics_tpu_torch.observability import telemetry_jsonl, telemetry_prometheus
+
+    rows = [json.loads(line) for line in telemetry_jsonl(snapshot).splitlines()]
+    blocks = [(None, snapshot["collection"])] + list(snapshot["members"].items())
+    for member, snap in blocks:
+        for domain, keys in JAX_TELEMETRY_KEYS.items():
+            assert keys <= set(snap[domain]), (member, domain, keys - set(snap[domain]))
+            row = [r for r in rows if r.get("member") == member and r["domain"] == domain]
+            assert len(row) == 1 and keys <= set(row[0]), (member, domain)
+    text = telemetry_prometheus(snapshot)
+    samples = {}
+    for line in text.strip().splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        name, value = line.rsplit(" ", 1)
+        samples.setdefault(name.split("{")[0], []).append(float(value))
+    for domain, keys in JAX_TELEMETRY_KEYS.items():
+        for key in keys - {"fallback", "errors", "invalidate_reasons"}:  # strings and maps
+            assert f"metrics_tpu_{domain}_{key}" in samples, f"metrics_tpu_{domain}_{key}"
+    return len(rows), sum(len(v) for v in samples.values())
+
+
+def _telemetry_phase(device, make, batches):
+    """The flagship collection with the journal off and on: the step's host
+    time, its ``cudaStreamSynchronize`` count (equal both ways: no span reads
+    the device) and its events; a save and load journaled and counted; the
+    journal exported as a Chrome trace and read back; the ``telemetry()``
+    encodings against the JAX package's schema; the cost of one record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch import load_checkpoint, observability as obs, save_checkpoint
+
+    preds, target = batches[0].to(device), batches[1].to(device)
+    steps = len(preds)
+    runs = {}
+    for on in (False, True, True, False):  # in turns; the second of each is kept
+        obs.disable()
+        obs.clear()
+        if on:
+            obs.enable()
+        mc = make(device)
+        mc(preds[0], target[0])
+        torch.cuda.synchronize()
+        step_ms = []
+        for i in range(1, steps):
+            t0 = time.perf_counter()
+            mc(preds[i], target[i])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        events = len(obs.events())
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(4):
+                mc(preds[i], target[i])
+            torch.cuda.synchronize()
+        runs[on] = {"ms": float(np.median(step_ms)), "syncs": len(_sync_events(prof)) / 4,
+                    "events_per_step": events / (steps - 1), "mc": mc}
+    assert runs[True]["syncs"] == runs[False]["syncs"], \
+        f"journal on: {runs[True]['syncs']} cudaStreamSynchronize a step, off: {runs[False]['syncs']}"
+    print(f"flagship step, journal off: median {runs[False]['ms']:.4f} ms, {runs[False]['syncs']:.1f} "
+          f"cudaStreamSynchronize; journal on: median {runs[True]['ms']:.4f} ms "
+          f"({100 * (runs[True]['ms'] / runs[False]['ms'] - 1):+.2f}%), {runs[True]['syncs']:.1f} "
+          f"cudaStreamSynchronize (equal), {runs[True]['events_per_step']:.2f} events a step (a one-process "
+          "forward crosses no sync, group, health or checkpoint boundary)")
+    mc = runs[True]["mc"]
+    root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
+    try:
+        obs.clear()
+        obs.enable()
+        save_checkpoint(mc, root, step=0, rank=0, world=1)
+        save_checkpoint(mc, root, step=1, rank=0, world=1, keep_last=1)
+        loaded = load_checkpoint(make(device), root, rank=0, world=1)
+        assert mc.telemetry()["collection"]["checkpoint"]["saves"] == 2
+        assert mc.telemetry()["collection"]["checkpoint"]["pruned_steps"] == 1
+        assert loaded.telemetry()["collection"]["checkpoint"]["loads"] == 1
+        kinds = [e.kind for e in obs.events()]
+        assert kinds == ["checkpoint.save", "checkpoint.save", "checkpoint.prune", "checkpoint.load"], kinds
+        path = os.path.join(root, "trace.json")
+        obs.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)["traceEvents"]
+        assert {t["pid"] for t in trace} == {0} and all(t["ts"] >= 0 for t in trace if t["ph"] != "M")
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+    rows, samples = _check_snapshot_encodings(mc.telemetry())
+    n = 20_000
+    obs.clear()
+    obs.enable()
+    t0 = time.perf_counter()
+    for i in range(n):
+        obs.record("sync.gather", label="MetricCollection[acc, stats]", sync_epoch=0, states=7, fused=None)
+    record_us = (time.perf_counter() - t0) / n * 1e6
+    obs.disable()
+    t0 = time.perf_counter()
+    for i in range(n):
+        if obs.journal.ACTIVE:
+            obs.record("sync.gather")
+    off_us = (time.perf_counter() - t0) / n * 1e6
+    obs.clear()
+    print(f"save x2 (one pruned) and a load journaled {kinds} and counted in telemetry(); Chrome trace written, "
+          f"reloaded: {len(trace)} events, one pid, no negative ts; telemetry(): {rows} JSON lines and {samples} "
+          f"Prometheus samples, every key of the JAX schema in each; one record() on the host "
+          f"{record_us:.3f} us with the recorder on, a guarded site {off_us:.3f} us with it off")
+
+
+def _imagenet_batch(rng, device):
+    """One update of seeded ImageNet-1k val scores: uniform noise, with the
+    true class raised above it in 76% of the rows (a ResNet-50's top-1)."""
+    probs = rng.rand(BOOT_STEP, REPORT_CLASSES).astype(np.float32)
+    labels = rng.randint(0, REPORT_CLASSES, BOOT_STEP)
+    hit = rng.rand(BOOT_STEP) < 0.76
+    probs[hit, labels[hit]] += 1.0
+    return torch.from_numpy(probs).to(device), torch.from_numpy(labels).to(device)
+
+
+def _boot_states(boot):
+    return [{k: v.cpu() for k, v in m._state.items()} for m in boot.metrics]
+
+
+def _poisson_near_tie(key, lam, draws):
+    """Does some running sum of ``log(u)`` of the draw of ``key``, in float64,
+    lie within a few float32 ulps of ``-lam``?"""
+    from metrics_tpu_torch.ops import prng
+
+    rng, total = key.cpu(), 0.0
+    for _ in range(draws + 2):
+        keys = prng.split(rng)
+        rng = keys[0]
+        if abs(total + lam) <= 8 * float(np.finfo(np.float32).eps) * max(1.0, lam):
+            return True
+        total += float(torch.log(prng.uniform(keys[1], 1).double()))
+    return False
+
+
+def _bootstrap_run(device, strategy, steps, check=None):
+    """``BootStrapper(Accuracy(num_classes=1000), 100)`` over ``steps`` seeded
+    ImageNet-1k val batches; with ``check`` (the card's subkeys of each
+    update), the resample counts or draws of those keys on this device too."""
+    from metrics_tpu_torch import Accuracy, BootStrapper
+    from metrics_tpu_torch.ops import prng
+
+    boot = BootStrapper(Accuracy(num_classes=REPORT_CLASSES, device=device), num_bootstraps=BOOT_COPIES,
+                        quantile=list(BOOT_QUANTILES), raw=True, sampling_strategy=strategy, seed=0)
+    rng = np.random.RandomState(11)
+    keys, draws, step_ms, reads = [], [], [], []
+    for step in range(steps):
+        preds, target = _imagenet_batch(rng, device)
+        if step < BOOT_CHECK_STEPS:
+            chain = [boot._key]
+            for _ in range(BOOT_COPIES):  # the subkeys this update takes
+                chain.append(prng.split(chain[-1])[0])
+            subkeys = torch.stack([prng.split(k)[1] for k in chain[:-1]])
+            keys.append(subkeys)
+            draws.append(prng.poisson(subkeys, 1.0, BOOT_STEP) if strategy == "poisson"
+                         else prng.randint(subkeys, BOOT_STEP, 0, BOOT_STEP))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        loops = prng.HOST_READS["poisson"]
+        t0 = time.perf_counter()
+        boot.update(preds, target)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(prng.HOST_READS["poisson"] - loops)
+        if step == BOOT_CHECK_STEPS - 1:
+            states = _boot_states(boot)
+            values = {k: v.cpu() for k, v in boot.compute().items()}
+            boot._computed = None
+    return boot, keys, draws, step_ms, reads, states, values
+
+
+def _wrappers_phase(device):
+    """BootStrapper at ImageNet-1k val size (Poisson and multinomial) against
+    the CPU over its first updates; MetricTracker over 10 epochs against the
+    CPU; ``embedding_similarity`` on a SimCLR batch against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch import Accuracy, MetricTracker
+    from metrics_tpu_torch.functional import embedding_similarity
+
+    steps = IMAGENET_VAL // BOOT_STEP
+    for strategy in ("poisson", "multinomial"):
+        t0 = time.perf_counter()
+        boot, keys, draws, step_ms, reads, states, values = _bootstrap_run(device, strategy, steps)
+        t1 = time.perf_counter()
+        cpu = _bootstrap_run("cpu", strategy, BOOT_CHECK_STEPS)
+        t2 = time.perf_counter()
+        near_ties, affected = [], set()
+        for step in range(BOOT_CHECK_STEPS):
+            assert torch.equal(keys[step].cpu(), cpu[1][step]), f"{strategy}: other keys at update {step}"
+            got, want = draws[step].cpu(), cpu[2][step]
+            for b, i in torch.nonzero(got != want).tolist():
+                assert strategy == "poisson", f"multinomial draw {b}, {i} differs at update {step}"
+                assert _poisson_near_tie(keys[step][b], 1.0, int(max(got[b, i], want[b, i]))), \
+                    f"Poisson draw {b}, {i} at update {step}: {int(got[b, i])} vs {int(want[b, i])}, no near-tie"
+                near_ties.append((step, b, i))
+                affected.add(b)
+        for b, (s_got, s_want) in enumerate(zip(states, cpu[5])):
+            if b not in affected:
+                for name, v in s_want.items():
+                    assert torch.equal(s_got[name], v), f"{strategy} copy {b}: state {name} differs from the CPU"
+        errs = {}
+        if not affected:
+            for k, v in cpu[6].items():
+                errs[k] = float((values[k].double() - v.double()).abs().max())
+                assert errs[k] <= BOOT_ATOL, f"{strategy} {k}: card vs CPU {errs[k]} (bound {BOOT_ATOL:.3e})"
+        preds, target = _imagenet_batch(np.random.RandomState(12), device)
+        boot.update(preds, target)  # warm
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        # the runtime's synchronisations and copies only: the ~30,000 host
+        # operations of an update would cost the profiler seconds to record
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            boot.update(preds, target)
+            torch.cuda.synchronize()
+        syncs, d2h = _host_reads(prof)
+        assert syncs >= BOOT_COPIES, f"the profile saw {syncs} cudaStreamSynchronize in an update"
+        t4 = time.perf_counter()
+        out = boot.compute()
+        assert out["raw"].shape == (BOOT_COPIES,) and bool(torch.isfinite(out["raw"]).all())
+        lo, hi = out["quantile"].tolist()
+        print(f"BootStrapper(Accuracy(1000), {BOOT_COPIES}) {strategy}: {steps + 2} updates of [{BOOT_STEP}, "
+              f"{REPORT_CLASSES}]; update median {np.median(step_ms):.3f} ms (max {max(step_ms):.3f}), "
+              f"{syncs} cudaStreamSynchronize and {d2h} DtoH copies in one update ({np.mean(reads):.1f} of them "
+              f"the Poisson loop's any()); top-1 {float(out['mean']):.6f} +- {float(out['std']):.6f}, 95% interval "
+              f"[{lo:.6f}, {hi:.6f}]; first {BOOT_CHECK_STEPS} updates against the CPU: keys and "
+              f"{'counts' if strategy == 'poisson' else 'draws'} equal, {len(near_ties)} Poisson near-tie "
+              f"mismatches {near_ties}, copies' states equal"
+              + (f", mean/std/quantile/raw within {BOOT_ATOL:.3e}: {errs}" if errs else
+                 f" except the {len(affected)} copies with a near-tie draw")
+              + f"; the card's run {t1 - t0:.1f} s, the CPU's {t2 - t1:.1f} s, the profiled update {t4 - t3:.1f} s")
+        del boot
+
+    # MetricTracker: an epoch's predictions get better, then worse
+    rng = np.random.RandomState(13)
+    epochs = []
+    for epoch in range(TRACKER_EPOCHS):
+        labels = rng.randint(0, REPORT_CLASSES, TRACKER_ROWS)
+        probs = rng.rand(TRACKER_ROWS, REPORT_CLASSES).astype(np.float32)
+        probs[np.arange(TRACKER_ROWS), labels] += 0.2 * np.sin(np.pi * epoch / TRACKER_EPOCHS) + 0.5
+        epochs.append((torch.from_numpy(probs), torch.from_numpy(labels)))
+    best, tracker_s = {}, {}
+    for dev in (device, "cpu"):
+        tracker = MetricTracker(Accuracy(num_classes=REPORT_CLASSES, device=dev))
+        t0 = time.perf_counter()
+        for probs, labels in epochs:
+            tracker.increment()
+            for half in torch.arange(TRACKER_ROWS).tensor_split(2):
+                tracker(probs[half].to(dev), labels[half].to(dev))
+        best[str(dev)] = tracker.best_metric(return_step=True)
+        tracker_s[str(dev)] = time.perf_counter() - t0
+        assert tracker.device == torch.device(dev) and tracker.n_steps == TRACKER_EPOCHS
+        if dev != "cpu":
+            all_values = tracker.compute_all()
+    assert best[str(device)] == best["cpu"], best
+    print(f"MetricTracker(Accuracy(1000)) over {TRACKER_EPOCHS} epochs of {TRACKER_ROWS} rows: best "
+          f"{best['cpu'][0]:.6f} at epoch {best['cpu'][1]} on the card and on the CPU; the card's run "
+          f"{tracker_s[str(device)] * 1e3:.1f} ms (the host-to-card copies of "
+          f"{TRACKER_EPOCHS * TRACKER_ROWS * REPORT_CLASSES * 4 / 1e6:.0f} MB included), the CPU's "
+          f"{tracker_s['cpu']:.1f} s; values {[round(float(v), 4) for v in all_values]}")
+
+    # embedding_similarity on a SimCLR batch
+    z = torch.from_numpy(np.random.RandomState(14).randn(SIMCLR_BATCH, SIMCLR_DIM).astype(np.float32))
+    zc = z.to(device)
+    for reduction, atol in (("none", SIMILARITY_ATOL), ("mean", SIMILARITY_MEAN_ATOL)):
+        got = embedding_similarity(zc, "cosine", reduction, True)
+        want = embedding_similarity(z, "cosine", reduction, True)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= atol, f"embedding_similarity {reduction}: card vs CPU {err} (bound {atol:.3e})"
+        if reduction == "none":
+            assert bool((torch.diagonal(got) == 0).all()) and got.shape == (SIMCLR_BATCH, SIMCLR_BATCH)
+        ms = _time_ms(lambda: embedding_similarity(zc, "cosine", reduction, True), reps=10, inner=10)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        embedding_similarity(zc, "cosine", reduction, True)
+        torch.cuda.synchronize()
+        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        flops = 2 * SIMCLR_BATCH * SIMCLR_BATCH * SIMCLR_DIM
+        print(f"embedding_similarity(cosine, {reduction}, zero_diagonal) on [{SIMCLR_BATCH}, {SIMCLR_DIM}]: "
+              f"{ms:.4f} ms (CUDA events), {flops / ms / 1e9:.1f} TFLOP/s of the float32 product "
+              f"(TF32 off), peak {peak_mib:.1f} MiB above the input; card vs CPU {err:.3e} (bound {atol:.3e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs a CUDA card", file=sys.stderr)
@@ -2821,6 +3235,10 @@ def main() -> int:
     _checkpoint_phase(device, curves_runs["capacity"]["collection"], retrieval_runs["capacity"]["collection"])
     del curves_runs
 
+    _phase("telemetry: the flagship collection with the journal off and on, a journaled save and load, the Chrome "
+           "trace, the telemetry() encodings")
+    _telemetry_phase(device, flagship, (probs, labels))
+
     _phase(f"image-fid: FID (buffered and streaming), KID({KID_SUBSETS}x{KID_SUBSET_SIZE}) and IS({IS_SPLITS}) at "
            f"CIFAR-10 FID-10k size ({CIFAR_IMAGES} real + {CIFAR_IMAGES} generated 32x32 uint8 images in "
            f"{CIFAR_STEPS} steps of {CIFAR_STEP}), fidelity Inception-v3 with random weights; CPU checks on "
@@ -2851,6 +3269,11 @@ def main() -> int:
            f"{WSJ_SAMPLES} samples, {WSJ_MIXTURES // WSJ_STEP} steps of {WSJ_STEP}) and {HUNGARIAN_MIXTURES} "
            f"mixtures of {HUNGARIAN_SPK} speakers (Hungarian); against the CPU run")
     _audio_phase(device)
+
+    _phase(f"wrappers: BootStrapper(Accuracy(1000), {BOOT_COPIES}) at ImageNet-1k val size ({IMAGENET_VAL} x "
+           f"{REPORT_CLASSES} in updates of {BOOT_STEP}), Poisson and multinomial; MetricTracker over "
+           f"{TRACKER_EPOCHS} epochs; embedding_similarity on a SimCLR batch ({SIMCLR_BATCH} x {SIMCLR_DIM})")
+    _wrappers_phase(device)
 
     _phase(f"sync: {SYNC_WORLD} ranks on the one card (gloo), the report, ranking, regression and retrieval "
            "collections, the text metrics and BERTScore, divergence cases, and an elastic resume of the ranks' shards into one process")

@@ -11,6 +11,7 @@ raises.
 """
 __version__ = "0.1.0"
 
+from metrics_tpu_torch import observability
 from metrics_tpu_torch.audio import PIT, SI_SDR, SI_SNR, SNR
 from metrics_tpu_torch.classification import (
     AUC,
@@ -67,6 +68,7 @@ from metrics_tpu_torch.regression import (
     TweedieDevianceScore,
 )
 from metrics_tpu_torch.text import WER, BERTScore, BLEUScore, ROUGEScore
+from metrics_tpu_torch.wrappers import BootStrapper, MetricTracker
 
 __all__ = [
     "AUC",
@@ -79,6 +81,7 @@ __all__ = [
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "BootStrapper",
     "CalibrationError",
     "CatBuffer",
     "CohenKappa",
@@ -103,6 +106,7 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
     "PIT",
     "PSNR",
     "PearsonCorrcoef",

@@ -40,8 +40,10 @@ leaves are written as their raw 16-bit words under the dtype name
 ``"bfloat16"`` (the JAX reader resolves it through ``ml_dtypes``) and read
 back by reinterpreting the words, with no ``ml_dtypes`` here.
 
-Not ported yet: the telemetry counters and journal events of saves, loads,
-prunes and refusals (they wait for the telemetry port), and the refusal of a
+**Telemetry.** Saves, loads, pruned steps, auto-snapshots and refusals of
+a synced state count in the target's ``checkpoint`` telemetry domain, and
+``checkpoint.save``/``load``/``prune``/``refused`` are journaled (per-rank
+facts: each rank writes its own shard). Not ported yet: the refusal of a
 snapshot while a non-blocking sync round is in flight (the port has no such
 round yet). The JAX package's refusal of traced state is a refusal while a
 CUDA graph is being captured here.
@@ -60,6 +62,8 @@ import torch
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import Metric, _cast_floating
+from metrics_tpu_torch.observability import journal
+from metrics_tpu_torch.observability.registry import registry_of
 from metrics_tpu_torch.parallel.health import (
     fingerprint_crc,
     state_poisoned,
@@ -268,8 +272,17 @@ def _fx_tag(fx: Any) -> Optional[str]:
     return "callable"
 
 
+def _refuse_snapshot(m: Metric, reason: str) -> None:
+    """Count and journal a refused snapshot before the typed error raises, so
+    that a stalled checkpoint cadence shows why in ``telemetry()``."""
+    registry_of(m).inc("checkpoint", "refused")
+    if journal.ACTIVE:
+        journal.record("checkpoint.refused", label=type(m).__name__, step=m._update_count, reason=reason)
+
+
 def _metric_record(m: Metric, writer: _PayloadWriter) -> Dict[str, Any]:
     if m._is_synced:
+        _refuse_snapshot(m, "state is synced (snapshots serialize pre-sync state)")
         raise MetricsTPUUserError(
             f"save_checkpoint: {type(m).__name__} is currently synced. Snapshots "
             "serialize the PRE-sync rank-local state (so elastic resume can fold "
@@ -522,8 +535,18 @@ def save_checkpoint(
     manifest, writer = _build_snapshot(metric, step=step, rank=rank, world=world)
     path = os.path.join(_step_dir(directory, step), _shard_name(rank, world))
     _atomic_write(path, _pack(manifest, writer.segments))
+    registry_of(metric).inc("checkpoint", "saves")
+    if journal.ACTIVE:
+        journal.record(
+            "checkpoint.save", label=type(metric).__name__, step=step, rank=rank, world=world, bytes=writer.offset,
+        )
     if keep_last is not None and rank == 0:
-        prune_checkpoints(directory, keep_last)
+        pruned = prune_checkpoints(directory, keep_last)
+        if pruned:
+            # retention runs on rank 0 only: the event mirrors the deletion
+            registry_of(metric).inc("checkpoint", "pruned_steps", by=len(pruned))
+            if journal.ACTIVE:
+                journal.record("checkpoint.prune", label=type(metric).__name__, steps=",".join(map(str, pruned)))
     return path
 
 
@@ -992,7 +1015,7 @@ def load_checkpoint(
                 "unsync() would clobber the restored state with the pre-sync cache. "
                 "Call unsync() first."
             )
-    _step, ckpt_world, shard_paths = _resolve_snapshot(directory, step)
+    snap_step, ckpt_world, shard_paths = _resolve_snapshot(directory, step)
     assigned = [i for i in range(ckpt_world) if i % world == rank]
     # verify + decode + schema-validate EVERY assigned shard before any mutation
     shards = [_decode_shard(shard_paths[i]) for i in assigned]
@@ -1007,6 +1030,12 @@ def load_checkpoint(
         _apply_replace(metric, shards[0])
         for shard in shards[1:]:
             _apply_merge(metric, shard)
+    registry_of(metric).inc("checkpoint", "loads")
+    if journal.ACTIVE:
+        journal.record(
+            "checkpoint.load", label=type(metric).__name__, step=snap_step, rank=rank, world=world,
+            shards=len(shards), checkpoint_world=ckpt_world,
+        )
     return metric
 
 
@@ -1082,6 +1111,7 @@ class MetricCheckpointer:
 
     def snapshot(self) -> str:
         """Take one snapshot now (also the periodic/exit-flush path)."""
+        registry_of(self.metric).inc("checkpoint", "auto_snapshots")
         path = save_checkpoint(
             self.metric,
             self.directory,

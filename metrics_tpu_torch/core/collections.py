@@ -21,6 +21,9 @@ update/forward/compute/reset/clone/state_dict, and its two performance seams:
   (``parallel/bucketing.py``); ``compute()`` in a distributed run syncs the
   collection so, once, and the members compute from the synced state.
 
+``telemetry()`` returns the collection's snapshot and every member's
+(``{"collection": ..., "members": {key: ...}}``); the planner journals
+``group.form`` and ``group.detach``, a failed fused sync ``health.failure``.
 Overlapped sync is not ported yet. It is a ``torch.nn.ModuleDict``, as
 upstream TorchMetrics' is, so ``.to()`` moves every member.
 """
@@ -40,6 +43,9 @@ from metrics_tpu_torch.core.metric import (
     _fire_checkpointer,
     _fresh_state_value,
 )
+from metrics_tpu_torch.observability import journal
+from metrics_tpu_torch.observability.diagnostics import warn_once
+from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
 from metrics_tpu_torch.parallel import bucketing
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.parallel.health import FUSED_KEY_SEP, is_missing_rank_error
@@ -276,7 +282,20 @@ class MetricCollection(nn.ModuleDict):
             if m._is_synced or occurrences[id(m)] > 1:
                 continue
             ident = m._effective_update_identity()
-            if ident is None or _static_grouping_hazards(m):
+            if ident is None:
+                continue
+            hazards = _static_grouping_hazards(m)
+            if hazards:
+                # the class declares an update_identity, but its update
+                # latches an undeclared attribute: it stays solo, and says
+                # why once per class
+                warn_once(
+                    ("group-static-hazard", type(m)),
+                    f"{type(m).__name__} declares update_identity() but is excluded from compute groups: "
+                    + "; ".join(hazards[:3])
+                    + ". Declare the attribute(s) in _group_shared_attrs (or with add_state) to restore grouping.",
+                    UserWarning,
+                )
                 continue
             key = (ident, m.state_fingerprint()) + self._sync_config_key(m)
             buckets.setdefault(key, []).append((k, m))
@@ -363,6 +382,11 @@ class MetricCollection(nn.ModuleDict):
         for m in group.members:
             object.__setattr__(m, "_compute_group", group)
         self._relink_group(group)
+        if journal.ACTIVE:
+            journal.record(
+                "group.form", label=type(group.members[0]).__name__,
+                members=len(group.members), keys=",".join(k for k, _ in sg),
+            )
 
     def _relink_group(self, group: _ComputeGroup, source: Optional[Metric] = None) -> None:
         """Point every member's states at ``source``'s objects (no copies) and
@@ -407,6 +431,8 @@ class MetricCollection(nn.ModuleDict):
             object.__setattr__(m, "_compute_group", None)
             for k, v in m._state.items():
                 nn.Module.__setattr__(m, k, _fresh_state_value(v))
+        if journal.ACTIVE:
+            journal.record("group.detach", label="MetricCollection", members=len(members), reason="dispatch-failure")
         self._groups_stale = True
 
     # ---------------- forward / update / compute ----------------
@@ -655,6 +681,32 @@ class MetricCollection(nn.ModuleDict):
             self, directory, every_n_updates=every_n_updates, keep_last=keep_last, rank=rank, world=world
         )
 
+    # ---------------- telemetry ----------------
+
+    def compile_stats(self) -> Dict[str, Any]:
+        """``{"collection": {...}, "members": {key: {...}}}``: the compile
+        domains of the collection and of each member (see
+        :meth:`Metric.compile_stats`)."""
+        coll = compile_stats_view(registry_of(self).domain("compile"))
+        return {"collection": coll, "members": {k: m.compile_stats() for k, m in super().items()}}
+
+    def sync_stats(self) -> Dict[str, Any]:
+        """``{"collection": {...}, "members": {key: {...}}}``: the sync
+        domains of the collection (its combined rounds) and of each member
+        (see :meth:`Metric.sync_stats`)."""
+        coll = dict(registry_of(self).domain("sync"))
+        return {"collection": coll, "members": {k: m.sync_stats() for k, m in super().items()}}
+
+    def telemetry(self, delta: bool = False) -> Dict[str, Any]:
+        """The snapshot of the collection and of every member:
+        ``{"collection": {schema, label, compile, sync, checkpoint, health,
+        plan, process}, "members": {key: <member telemetry>}}`` (see
+        :meth:`Metric.telemetry`; ``delta=True`` on every registry)."""
+        reg = registry_of(self)
+        extra = {"compile": compile_stats_view(reg.domain("compile"))}
+        coll = reg.delta(extra) if delta else reg.snapshot(extra)
+        return {"collection": coll, "members": {k: m.telemetry(delta=delta) for k, m in super().items()}}
+
     # ---------------- host sync ----------------
 
     def sync(
@@ -693,7 +745,13 @@ class MetricCollection(nn.ModuleDict):
                 return
             except SyncError as err:
                 modes = [m.sync_on_error if on_error is None else on_error for m in self.values()]
-                if all(mode == "raise" for mode in modes) and not self._missing_degrades(err, on_missing):
+                degrades = not all(mode == "raise" for mode in modes) or self._missing_degrades(err, on_missing)
+                registry_of(self).count_error(err, degraded=degrades)
+                if journal.ACTIVE:
+                    journal.record(
+                        "health.failure", label="MetricCollection", error=type(err).__name__, phase="fused"
+                    )
+                if not degrades:
                     raise  # nothing was synced: all-or-nothing holds
         synced: List[Metric] = []
         try:

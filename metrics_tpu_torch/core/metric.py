@@ -9,7 +9,9 @@ plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
 :class:`CompositionalMetric`; the health-checked sync with its ``on_error`` /
 ``on_missing`` degradation ladder and watchdog timeout, ``check_finite``
 screening, and the compute-group protocol ``MetricCollection`` plans with
-(``state_fingerprint``, ``update_identity``, copy-on-write detach).
+(``state_fingerprint``, ``update_identity``, copy-on-write detach); the
+telemetry surface (``telemetry``, ``sync_stats``, ``compile_stats``, the
+health counters and the journal events of a failed sync and a detach).
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
 states are registered buffers (so ``.to()``/``.cuda()`` move them), list
@@ -34,6 +36,8 @@ import torch
 from torch import nn
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.observability import journal
+from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.parallel.health import NONFINITE_STATE, is_missing_rank_error, state_poisoned
 from metrics_tpu_torch.utils.device import resolve_device
@@ -617,9 +621,20 @@ class Metric(nn.Module):
         if on_missing == "local" and on_error == "raise" and is_missing_rank_error(err):
             on_error = "local"
         self._cache = None
+        registry_of(self).count_error(err, degraded=on_error != "raise")
+        if journal.ACTIVE:
+            journal.record(
+                "health.failure", label=type(self).__name__, step=self._update_count,
+                error=type(err).__name__, on_error=on_error,
+            )
         if on_error == "raise":
             raise err
         self._sync_degraded = True
+        if journal.ACTIVE:
+            journal.record(
+                "degrade.local", label=type(self).__name__, step=self._update_count,
+                error=type(err).__name__, on_error=on_error,
+            )
         if isinstance(err, NonFiniteStateError) and self._local_state_poisoned():
             # degradation promises a partial but correct value; this rank's
             # own state is corrupt, so every rank that holds such state warns
@@ -644,6 +659,40 @@ class Metric(nn.Module):
 
     def _distributed_available(self) -> bool:
         return _sync.distributed_available(self.process_group)
+
+    # ------------------------------------------------------------------
+    # telemetry (observability/registry.py)
+    # ------------------------------------------------------------------
+
+    def sync_stats(self) -> Dict[str, Any]:
+        """The ``sync`` domain of :meth:`telemetry`: the overlapped-sync
+        ledger (rounds ``launched``/``resolved``/``cancelled``,
+        ``stale_resolves``, ``degraded``, ``served_local``, ``gather_s``,
+        ``resolve_wait_s``, ``overlap_saved_s``) and the tier byte counters.
+        Blocking syncs count no round, as in the JAX package, and this
+        package runs blocking syncs only, so these are 0 until overlapped
+        sync and tiering are ported; a blocking sync's failures count in the
+        ``health`` domain and its collectives are journaled."""
+        return dict(registry_of(self).domain("sync"))
+
+    def compile_stats(self) -> Dict[str, Any]:
+        """The ``compile`` domain of :meth:`telemetry` (``traces``,
+        ``dispatches``, ``cache_hits``, ``steps_seen``, ``fallback``): at its
+        defaults until the compiled path is ported."""
+        return compile_stats_view(registry_of(self).domain("compile"))
+
+    def telemetry(self, delta: bool = False) -> Dict[str, Any]:
+        """This metric's telemetry snapshot, in the JAX package's layout and
+        schema (``metrics_tpu.telemetry.v1``): the ``compile``, ``sync``,
+        ``checkpoint``, ``health`` and ``plan`` domains and the ``process``
+        counters. ``delta=True`` gives the numeric change since the previous
+        ``telemetry(delta=True)`` (the first against zero). Encode with
+        :func:`~metrics_tpu_torch.observability.telemetry_jsonl` or
+        :func:`~metrics_tpu_torch.observability.telemetry_prometheus`. Reads
+        no device."""
+        reg = registry_of(self)
+        extra = {"compile": self.compile_stats()}
+        return reg.delta(extra) if delta else reg.snapshot(extra)
 
     def _local_state_poisoned(self) -> bool:
         """Is THIS rank's own state NaN/Inf-poisoned (``check_finite``)?"""
@@ -940,6 +989,10 @@ class Metric(nn.Module):
             return
         group.members[:] = [m for m in group.members if m is not self]
         object.__setattr__(self, "_compute_group", None)
+        if journal.ACTIVE:
+            journal.record(
+                "group.detach", label=type(self).__name__, step=self._update_count, remaining=len(group.members),
+            )
         for k, v in self._state.items():
             nn.Module.__setattr__(self, k, _fresh_state_value(v))
         if len(group.members) < 2:

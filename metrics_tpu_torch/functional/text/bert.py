@@ -22,7 +22,6 @@ Counterpart of ``metrics_tpu/functional/text/bert.py``:
   model); a failed fetch degrades to a warning.
 """
 import csv
-import importlib.util
 import math
 import os
 from collections import Counter
@@ -33,9 +32,8 @@ import torch
 
 from metrics_tpu_torch.models.bert import BertConfig, BertEncoder, config_from_params
 from metrics_tpu_torch.utils.device import full_float32, resolve_device
+from metrics_tpu_torch.utils.imports import _TRANSFORMERS_AVAILABLE
 from metrics_tpu_torch.utils.prints import rank_zero_warn
-
-_TRANSFORMERS_AVAILABLE = importlib.util.find_spec("transformers") is not None
 
 _CLS_ID, _SEP_ID, _PAD_ID = 101, 102, 0
 

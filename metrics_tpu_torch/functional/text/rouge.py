@@ -12,7 +12,6 @@ splitter, and makes the same choice: nltk's ``PorterStemmer`` and
 ``sent_tokenize`` when nltk is importable, the built-in ones otherwise, and
 the regex splitter when nltk's ``punkt`` data is missing (``LookupError``).
 """
-import importlib.util
 import re
 from collections import Counter
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -20,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-_NLTK_AVAILABLE = importlib.util.find_spec("nltk") is not None
+from metrics_tpu_torch.utils.imports import _NLTK_AVAILABLE
 
 ALLOWED_ROUGE_KEYS: Dict[str, Union[int, str]] = {
     **{f"rouge{n}": n for n in range(1, 10)},

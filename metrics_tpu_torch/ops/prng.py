@@ -12,6 +12,16 @@ fresh bits. uint32 words are held in int64 and masked to 32 bits, on the
 device of the caller's choice. Keys, splits, bits and permutations are bit
 for bit; a float32 ``normal`` is JAX's uniform-to-normal map through XLA's
 own ``ErfInv`` polynomial, within 4 ulps of ``jax.random.normal``.
+
+BootStrapper's draws (``metrics_tpu/wrappers/bootstrapping.py``) are
+``jax.random.uniform``, ``randint`` and ``poisson``: the uniform is the
+mantissa trick on 32 random bits and the randint two words of a split
+reduced modulo the span, both bit for bit; the Poisson draw for a rate
+below 10 is JAX's Knuth loop, whose count can differ only where a running
+sum of ``torch.log`` lies within an ulp or two of ``-lam`` (XLA's ``log``
+and torch's may round differently there). The loop runs while any draw is
+still below the bound, so on the card each iteration reads the host once,
+as JAX's ``while_loop`` does; :data:`HOST_READS` counts these reads.
 """
 import math
 from typing import Optional, Tuple, Union
@@ -22,6 +32,10 @@ import torch
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
+
+#: Host reads of the draws that loop on the data: one per iteration of
+#: :func:`poisson`'s Knuth loop (its ``any()``), wherever it ran.
+HOST_READS = {"poisson": 0}
 
 
 def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -125,3 +139,64 @@ def normal(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     span = float(np.float32(1.0) - lo)  # 2 - 2**-24 rounds to 2.0 in float32, as in JAX
     u = torch.clamp_min(floats * span + float(lo), float(lo))
     return (float(np.float32(np.sqrt(2.0))) * _erfinv_f32(u)).reshape(shape)
+
+
+def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))`` (float32 in [0, 1)) per key of
+    ``key`` (``[..., 2]``): ``[..., n]``. The top 23 of 32 random bits are
+    the mantissa of a float in [1, 2), minus 1: exact, so bit for bit."""
+    bits = random_bits(key, n)
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` (int32 semantics, as
+    int64) per key of ``key`` (``[..., 2]``): ``[..., n]``, bit for bit.
+
+    Two 32-bit words per value from the two keys of a split, reduced as
+    ``(hi % span) * m + lo % span``, modulo ``span``. ``m`` is
+    ``(2**16 % span)**2 % span`` with the square wrapping at 2**32 as JAX's
+    uint32 product does, so it is 0 for spans above 2**16."""
+    if not -(2**31) <= minval < 2**31 or not -(2**31) <= maxval < 2**31:
+        raise ValueError(f"randint bounds [{minval}, {maxval}) must fit int32")
+    keys = split(key)
+    higher, lower = random_bits(keys[..., 0, :], n), random_bits(keys[..., 1, :], n)
+    span = 1 if maxval <= minval else maxval - minval
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span
+    # no uint32 wrap to emulate: with a multiplier other than 0 both factors
+    # are below 2**16, so the product and the sum stay below 2**32
+    offset = (higher % span) * multiplier + lower % span
+    return minval + offset % span
+
+
+def poisson(key: torch.Tensor, lam: float, n: int) -> torch.Tensor:
+    """``jax.random.poisson(key, lam, (n,))`` for ``0 <= lam < 10`` per key of
+    ``key`` (``[..., 2]``): int64 ``[..., n]``.
+
+    JAX's Knuth loop (``jax._src.random._poisson_knuth``): while any running
+    log-product exceeds ``-lam``, split the key, count the draws still above
+    it, and add ``log`` of a fresh uniform; the count minus one is the draw.
+    A batch of keys runs one loop for all of them: a key whose draws are all
+    done keeps its counts through the extra iterations, so each key's draw
+    is the one it would get alone. Every iteration's ``any()`` is one host
+    read (:data:`HOST_READS`). Rates of 10 and above take JAX's rejection
+    sampler, which is not ported: they raise ``ValueError``.
+    """
+    lam32 = float(np.float32(lam))
+    if not 0.0 <= lam32 < 10.0:
+        raise ValueError(f"poisson is ported for 0 <= lam < 10 (Knuth's loop), got lam={lam}")
+    shape = (*key.shape[:-1], n)
+    k = torch.zeros(shape, dtype=torch.int64, device=key.device)
+    if lam32 == 0.0:
+        return k
+    log_prod = torch.zeros(shape, dtype=torch.float32, device=key.device)
+    rng = key
+    while True:
+        alive = log_prod > -lam32
+        HOST_READS["poisson"] += 1
+        if not bool(alive.any()):
+            return k - 1
+        keys = split(rng)
+        rng, subkey = keys[..., 0, :], keys[..., 1, :]
+        k = k + alive
+        log_prod = log_prod + torch.log(uniform(subkey, n))

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.parallel.health import (
     cat_family_names,
     cat_row_count,
@@ -177,7 +178,7 @@ def _classify(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPlan:
 def build_sync_plan(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPlan:
     """The cached plan of this state's schema. The key is the full schema
     string (so a CRC collision cannot alias two schemas) plus the identity of
-    any callable reduction."""
+    any callable reduction. A new plan journals ``sync.plan``."""
     callables = tuple(id(reductions[name]) for name in sorted(reductions) if callable(reductions[name]))
     key = (state_schema_parts(state, reductions), callables)
     with _CACHE_LOCK:
@@ -188,7 +189,11 @@ def build_sync_plan(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPl
         _STATS["misses"] += 1
     plan = _classify(state, reductions)
     with _CACHE_LOCK:
-        return _PLANS.setdefault(key, plan)
+        cached = _PLANS.setdefault(key, plan)
+    if cached is plan and journal.ACTIVE:
+        # one event per plan the cache keeps, whichever thread built it first
+        journal.record("sync.plan", buckets=plan.n_buckets, cat_leaves=len(plan.cat_leaves))
+    return cached
 
 
 def _local_flat_rows(value: Any) -> torch.Tensor:

@@ -35,6 +35,7 @@ channel-suspect latch it sets when a collective times out.
 """
 import os
 import threading
+import time
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar
 
@@ -42,6 +43,8 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.observability import journal
+from metrics_tpu_torch.observability.registry import bump_process, set_process
 from metrics_tpu_torch.utils.exceptions import (
     NonFiniteStateError,
     StateDivergenceError,
@@ -497,7 +500,11 @@ def call_with_sync_watchdog(fn: Callable[[], T], *, timeout: Optional[float] = N
 
     A collective blocked on a dead or stalled peer would block forever; here
     it raises :class:`SyncTimeoutError` and latches the channel suspect (the
-    worker cannot be cancelled and is left to die with the process).
+    worker cannot be cancelled and is left to die with the process). A fired
+    watchdog bumps the process counter ``watchdog_fired`` and journals
+    ``health.watchdog``; a finished collective sets ``watchdog_margin_s``
+    (the timeout minus its time on the host's clock) and journals
+    ``health.margin``.
     """
     timeout = get_sync_timeout(timeout)
     if timeout <= 0:
@@ -511,15 +518,23 @@ def call_with_sync_watchdog(fn: Callable[[], T], *, timeout: Optional[float] = N
             box["error"] = err
 
     worker = threading.Thread(target=_run, name=f"metrics-tpu-watchdog[{what}]", daemon=True)
+    started = time.monotonic()
     worker.start()
     worker.join(timeout)
     if worker.is_alive():
+        bump_process("watchdog_fired")
+        if journal.ACTIVE:
+            journal.record("health.watchdog", label=what, timeout_s=timeout)
         mark_channel_suspect()
         raise SyncTimeoutError(
             f"{what} did not complete within {timeout:g}s: a peer process is "
             "likely dead or stalled. Raise METRICS_TPU_SYNC_TIMEOUT_S for slow "
             "interconnects, or recover with Metric.sync(on_error='local')."
         )
+    elapsed = time.monotonic() - started
+    set_process("watchdog_margin_s", timeout - elapsed)
+    if journal.ACTIVE:
+        journal.record("health.margin", label=what, elapsed_s=elapsed, timeout_s=timeout, margin_s=timeout - elapsed)
     if "error" in box:
         raise box["error"]
     return box["value"]

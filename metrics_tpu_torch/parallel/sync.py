@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import torch
 import torch.distributed as dist
 
+from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.parallel.health import (
     build_health_word,
     call_with_sync_watchdog,
@@ -262,6 +263,7 @@ def host_sync_state(
     takes the per-leaf path with them. Every collective runs under the
     watchdog (``timeout``, see :func:`call_with_sync_watchdog`).
 
+    A sync of a distributed world journals ``sync.gather`` first.
     Once a watchdog fired in this process, syncs refuse with
     :class:`SyncTimeoutError` before any collective, until
     :func:`~metrics_tpu_torch.parallel.health.reset_channel_health`.
@@ -271,6 +273,9 @@ def host_sync_state(
     check_on_missing(on_missing)
     if not distributed_available(group):
         return {name: host_sync_leaf(value, reductions.get(name), group) for name, value in state.items()}
+    if journal.ACTIVE:
+        # epoch 0: a blocking sync (overlapped rounds are not ported yet)
+        journal.record("sync.gather", label=metric_name, sync_epoch=0, states=len(state), fused=fused)
     if channel_is_suspect():
         raise SyncTimeoutError(
             f"host sync of {metric_name} refused: an earlier collective timed out, so "

@@ -734,7 +734,10 @@ def _fid(streaming):
 def test_fid_two_rank_sync_and_fold_equal_one_process(world, streaming, tmp_path):
     def body(rank):
         m = _feed_fid(_fid(streaming), _t, _rank_batches(rank))
-        save_checkpoint(m, str(tmp_path), rank=rank, world=2)
+        # an explicit step: ranks on threads save at once, and with step=None
+        # a rank that looks while its peer's shard is still a temp file
+        # starts a step of its own (the two shards then never form one)
+        save_checkpoint(m, str(tmp_path), step=0, rank=rank, world=2)
         m.sync()
         synced = {k: [x.clone() for x in v] if isinstance(v, list) else v.clone() for k, v in m._state.items()}
         m.unsync()

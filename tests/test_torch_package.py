@@ -153,6 +153,9 @@ DOCTEST_MODULES = [
     "metrics_tpu_torch.text.rouge",
     "metrics_tpu_torch.text.bert",
     "metrics_tpu_torch.models.bert",
+    "metrics_tpu_torch.wrappers.bootstrapping",
+    "metrics_tpu_torch.wrappers.tracker",
+    "metrics_tpu_torch.functional.self_supervised",
 ]
 
 
@@ -230,6 +233,9 @@ DEFAULT_DEVICE_CASES = {
     "ROUGEScore": lambda **kw: port.ROUGEScore(**kw),
     # a callable model: the built-in encoder is built at compute() on the metric's device
     "BERTScore": lambda **kw: port.BERTScore(model=_identity, **kw),
+    # a wrapper lives on its base metric's device
+    "BootStrapper": lambda **kw: port.BootStrapper(port.MeanSquaredError(**kw), num_bootstraps=2),
+    "MetricTracker": lambda **kw: port.MetricTracker(port.MeanSquaredError(**kw)),
 }
 
 

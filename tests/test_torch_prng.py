@@ -5,6 +5,13 @@ JAX package; the port's draws must be the same integers for the same seed,
 or KID and IS differ. Every comparison here is exact: keys, split keys and
 permutations are integers. The sizes cover one shuffle round (n ≤ 1625),
 two rounds (n > 1625) and n past 2**16, and a batch of keys (JAX's ``vmap``).
+
+BootStrapper's draws: ``uniform`` and ``randint`` bit for bit (spans below,
+at and above 2**16, where JAX's multiplier wraps to 0, and the full int32
+range), and ``poisson`` at λ ∈ {0.5, 1, 4} equal draw for draw. A Poisson
+count may differ only where the running sum of ``log`` lies within a few
+ulps of ``-λ`` (torch's ``log`` and XLA's may round differently): every
+differing draw must be such a near-tie, its sum recomputed in float64.
 """
 import jax
 import numpy as np
@@ -105,3 +112,78 @@ def test_is_value_depends_on_the_draw():
     other = port.IS(feature=lambda x: x, splits=4, seed=43, device="cpu")
     other.update(torch.from_numpy(logits))
     assert abs(float(other.compute()[1]) - float(want)) > 1e-4
+
+
+def _keys(seed, n):
+    """``n`` subkeys, each from one ``key, subkey = split(key)``, as
+    BootStrapper takes them: JAX's and the port's."""
+    key, tkey, subs, tsubs = jax.random.PRNGKey(seed), prng.prng_key(seed), [], []
+    for _ in range(n):
+        key, sub = jax.random.split(key)
+        keys = prng.split(tkey)
+        tkey = keys[0]
+        subs.append(sub)
+        tsubs.append(keys[1])
+    return subs, torch.stack(tsubs)
+
+
+@pytest.mark.parametrize("seed", [0, 42, -7])
+def test_uniform_matches_jax_bit_for_bit(seed):
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (4097,)))
+    got = prng.uniform(prng.prng_key(seed), 4097)
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("bounds", [(0, 2000), (0, 7), (-5, 1000), (3, 3), (0, 65536), (0, 65537), (0, 100_000),
+                                    (-(2**31), 2**31 - 1)])
+@pytest.mark.parametrize("seed", [0, 42])
+def test_randint_matches_jax_bit_for_bit(seed, bounds):
+    lo, hi = bounds
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (3000,), lo, hi))
+    assert np.array_equal(prng.randint(prng.prng_key(seed), 3000, lo, hi).numpy(), want)
+
+
+def test_randint_of_a_batch_of_keys_matches_jax():
+    subs, tsubs = _keys(5, 6)
+    want = np.stack([np.asarray(jax.random.randint(k, (500,), 0, 500)) for k in subs])
+    assert np.array_equal(prng.randint(tsubs, 500, 0, 500).numpy(), want)
+
+
+def _near_tie(subkey, lam, draws):
+    """Is the Knuth loop of one draw a near-tie: does some running sum of
+    ``log(u)``, recomputed in float64 from the same uniforms, lie within a
+    few float32 ulps of ``-lam``? ``draws`` bounds the iterations."""
+    rng, total = subkey, 0.0
+    for _ in range(draws + 2):
+        keys = prng.split(rng)
+        rng = keys[0]
+        u = prng.uniform(keys[1], 1).double()
+        if abs(total + lam) <= 8 * np.finfo(np.float32).eps * max(1.0, lam):
+            return True
+        total += float(torch.log(u))
+    return False
+
+
+@pytest.mark.parametrize("lam", [0.5, 1.0, 4.0])
+def test_poisson_matches_jax(lam):
+    subs, tsubs = _keys(3, 4)
+    want = np.stack([np.asarray(jax.random.poisson(k, lam, (5000,))) for k in subs])
+    reads = prng.HOST_READS["poisson"]
+    got = prng.poisson(tsubs, lam, 5000)
+    assert got.dtype == torch.int64 and got.shape == (4, 5000)
+    # one host read per iteration of the loop: the most draws, plus the last check
+    assert prng.HOST_READS["poisson"] - reads == int(got.max()) + 2
+    differ = np.argwhere(got.numpy() != want)
+    explained = [(b, i) for b, i in differ if _near_tie(tsubs[b], lam, int(max(got[b, i], want[b, i])))]
+    assert len(explained) == len(differ), f"draws that differ and are no near-tie: {differ.tolist()}"
+    assert len(differ) <= 2, f"{len(differ)} near-ties in 20000 draws"
+
+
+def test_poisson_of_one_key_and_zero_rate():
+    key = jax.random.PRNGKey(9)
+    want = np.asarray(jax.random.poisson(key, 1.0, (300,)))
+    assert np.array_equal(prng.poisson(prng.prng_key(9), 1.0, 300).numpy(), want)
+    assert int(prng.poisson(prng.prng_key(9), 0.0, 300).abs().sum()) == 0
+    with pytest.raises(ValueError, match="lam < 10"):
+        prng.poisson(prng.prng_key(9), 12.0, 10)
