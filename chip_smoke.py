@@ -2,6 +2,13 @@
 """Smoke run of metrics_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compiled-only   # build, then the compiled phase alone
+
+Every phase prints its collections' ``compile_stats()``: after 16 eager
+steps the compiled hot path (``core/compiled.py``) replays a metric's
+``update``/``forward`` as a CUDA graph, so a phase with more steps runs
+compiled after its warm-up, and the line says which path ran and what fell
+back.
 
 1. checks for a card and prints its name and power limit;
 2. builds the CUDA kernels from ``metrics_tpu_torch/csrc``;
@@ -101,6 +108,16 @@
    steps of 100) and one batch of 8 speakers (the host Hungarian solve),
    against the CPU run (permutations equal wherever the best one leads by
    more than the values' bound); step ms and idle share;
+   compiled: the flagship, the grouped report, the regression, the binned
+   collection (B1 inside the graphs) and the 2-speaker audio step, 48 steps
+   with ``compiled_update=False`` and 48 with the default (16 eager, then
+   replays): step ms (median of the last 24), kernels and
+   ``cudaGraphLaunch`` a step, ``cudaStreamSynchronize`` a step and the
+   idle share (``torch.profiler``), traces, dispatches and fallbacks; the
+   states equal leaf for leaf between the two runs, every member the JAX
+   package compiles replayed and fell back nowhere, the members it refuses
+   carry its fallback kinds, B1's launches counted through the replays and
+   its states equal to the CPU run's (the plain twin);
    wrappers: a bootstrapped confidence interval of ImageNet-1k val top-1
    (``BootStrapper(Accuracy(num_classes=1000), num_bootstraps=100)``, 50,000
    seeded [., 1000] scores in 25 updates of 2,000; Poisson and multinomial),
@@ -459,7 +476,9 @@ def _run_collection(make, batches, device, per_step=None):
     t0 = time.perf_counter()
     values = mc.compute()
     torch.cuda.synchronize()
-    return mc, values, step_ms, (time.perf_counter() - t0) * 1e3, extra
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    _print_compile(f"{len(preds)} steps on {device}", mc)
+    return mc, values, step_ms, compute_ms, extra
 
 
 def _profile(make, batches, device, step_ms, steps=4, per_step=None):
@@ -764,6 +783,7 @@ def _curves_phase(smi, device):
               f"{device_ms:.4f} ms of device time; peak device memory of compute {peak_mib:.1f} MiB above its "
               f"inputs; values " + ", ".join(f"{k} {float(v):.7f}" for k, v in values.items()))
         print(f"  update steps: {_profile_updates(make, batches, device, step)}")
+        _print_compile(f"curves, {mode} mode", mc)
         mc_cpu = make("cpu")
         for i in range(CURVE_STEPS):
             mc_cpu.update(probs[i], labels[i])
@@ -1045,6 +1065,7 @@ def _regression_cat_phase(device):
             _check_cat_states(mc, mc_cpu, f"{name} {mode} mode, card vs CPU")
             err = _check_values(name, value[name], value_cpu[name], atol)
             step = float(np.median(step_ms))
+            _print_compile(f"{name}, {mode} mode", mc)
             print(f"{name}, {mode} mode: update step median {step:.4f} ms (max {max(step_ms):.4f}); compute first "
                   f"{cold_ms:.4f} ms, again {compute_ms:.4f} ms with {syncs} cudaStreamSynchronize and {d2h} DtoH "
                   f"copies, {n_kernels} device operations for {device_ms:.4f} ms of device time (torch.profiler), "
@@ -1202,6 +1223,7 @@ def _retrieval_phase(smi, device):
         runs[mode] = dict(collection=rc, values=values, prof=prof, step_ms=float(np.median(step_ms)))
         print(f"{mode} mode: update step median {np.median(step_ms):.4f} ms (max {max(step_ms):.4f}); values "
               + ", ".join(f"{k} {float(v):.7f}" for k, v in values.items()))
+        _print_compile(f"retrieval, {mode} mode", rc)
         _print_profile("the collection (one grouping sort)", prof)
     for k in runs["list"]["values"]:
         assert torch.equal(runs["list"]["values"][k], runs["capacity"]["values"][k]), \
@@ -1483,7 +1505,8 @@ def _sync_rank(rank, world, port_no, out_dir, device):
             values = mc.compute()  # syncs once, through the fused path
             out[name] = {"groups": mc.compute_group_keys, "fused": runs[True][0], "per_leaf": runs[False][0],
                          "compute_collectives": len(gathers), "states": runs[True][1],
-                         "values": {k: v.cpu() for k, v in values.items()}, "sync_stats": mc.sync_stats()}
+                         "values": {k: v.cpu() for k, v in values.items()}, "sync_stats": mc.sync_stats(),
+                         "compile": _compile_summary(mc)}
             if name != "regression":
                 # this rank's shard (rank and world from the process group)
                 save_checkpoint(mc, os.path.join(out_dir, "ckpt", name), step=0)
@@ -1674,6 +1697,9 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
                        start_method="spawn")
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)]
+    for r, result in enumerate(ranks):
+        for name in ("report", "ranking", "regression"):
+            print(f"compile_stats rank {r} {name} (traces/dispatches, fallback kinds): {result[name]['compile']}")
     print(f"backend {ranks[0]['backend']} (NCCL refuses two ranks on one device: not measured on one card); "
           f"{SYNC_WORLD} processes spawned, ran and joined in {spawn_s:.1f} s")
 
@@ -1994,6 +2020,7 @@ def _image_fid_phase(device):
           f"{np.median(step_ms):.3f} ms, first {step_ms[0]:.3f} ms, total {sum(step_ms) / 1e3:.2f} s, "
           f"{per_step / np.median(step_ms) * 1e3:.1f} images/s; the last under the profiler:")
     _step_profile(lambda: step(CIFAR_STEPS - 1), float(np.median(step_ms)), warm=False)
+    _print_compile("image-fid", metrics)
 
     def fid_ns():
         m = metrics["fid_streaming"]
@@ -2107,6 +2134,7 @@ def _image_lpips_phase(device):
               f"mean distance {float(value):.6f}; {LPIPS_CHECK_PAIRS} pairs card vs CPU max abs err {err:.3e} "
               f"(bound {LPIPS_RTOL * float(want.abs().max()):.3e})")
         _step_profile(lambda: m(ref[0], dist[0]), float(np.median(step_ms)), top=4)
+        _print_compile(f"LPIPS({net})", m)
         del m
     del ref, dist
 
@@ -2197,6 +2225,7 @@ def _image_ssim_phase(device):
     peak = (torch.cuda.max_memory_allocated() - base) / 2**20
     dy, dx = image_gradients(p)
     assert dy.shape == dx.shape == p.shape and float(dy[..., -1, :].abs().max()) == 0.0
+    _print_compile("image-ssim", ms)
     print(f"{DIV2K_STEPS} steps of {DIV2K_STEP} images: PSNR + SSIM update median {np.median(step_ms):.3f} ms "
           f"(first {step_ms[0]:.3f}), {DIV2K_STEP / np.median(step_ms) * 1e3:.2f} images/s; SSIM's window "
           f"(one depthwise 11x11 conv over the 5 stacked planes {list(planes_shape)}) {conv_ms:.3f} ms by CUDA events, "
@@ -2371,6 +2400,7 @@ def _text_phase(device):
         print(f"{name}: {n} updates, host ms per update median {np.median(update_ms[name]):.3f} (max "
               f"{max(update_ms[name]):.3f}), {sum(update_ms[name]) / 1e3:.2f} s in all; compute() "
               f"{compute_ms[name][0]:.3f} ms the first time, {compute_ms[name][1]:.3f} ms again")
+    _print_compile("text", card)
     print(f"WER {float(card_values['wer']):.6f} over {words} reference words (states and value equal to the CPU "
           f"run); BLEU {float(card_values['bleu']):.6f} (states equal; value card vs CPU {bleu_err:.3e}, bound "
           f"{BLEU_RTOL:.1e} relative); ROUGE per-sentence states equal to the CPU run, means "
@@ -2467,6 +2497,7 @@ def _bertscore_phase(device, data):
         state = getattr(m, name)
         assert all(s.device == device and s.dtype == torch.int32 and s.shape == (step, BERT_MAX_LEN) for s in state)
     values, prof = _profile_call(lambda: _fresh(m), reps=1)
+    _print_compile("bertscore", m)
     print(f"{BERT_STEPS} updates of {step} pairs: host ms per update median {np.median(update_ms):.3f} (tokenizing "
           f"and one copy per state); compute() over {NEWSTEST_SEGMENTS} pairs ({2 * NEWSTEST_SEGMENTS} sentences): "
           f"{2 * NEWSTEST_SEGMENTS / prof['event_ms'] * 1e3:.1f} sentences/s end to end")
@@ -2641,9 +2672,252 @@ def _audio_phase(device):
               + ", ".join(f"{k} {float(m.compute()):.4f} dB" for k, m in card.items())
               + f"; states within their bounds of the CPU run, counts equal; permutations equal to the CPU's in "
               f"{mixtures - ties} of {mixtures} mixtures, the {ties} others tied within {2 * AUDIO_DB_ATOL:.1e} dB")
+        _print_compile(f"audio, {spk} speakers", card)
         est, target = _wsj_step(spk, 0, device)
         _step_profile(lambda: _audio_step(card, est, target), float(np.median(step_ms)), top=4)
         del card, cpu, est, target
+
+
+# ---------------------------------------------------------------------------
+# the compiled hot path
+# ---------------------------------------------------------------------------
+
+#: Steps a compiled-phase run takes: the default warm-up of 16 eager steps,
+#: then 32 compiled ones (the medians are over the last 24).
+COMPILED_STEPS = 48
+COMPILED_TAIL = 24
+COMPILED_PROFILE_STEPS = 4
+
+#: What the JAX package's ``compile_stats()`` reports for the same calls
+#: (``tests/test_torch_compiled.py`` runs both packages on the CPU): the
+#: fallback kinds of each member; every other member compiles.
+JAX_FALLBACK_KINDS = {
+    "flagship": {"acc": {"update", "forward"}},
+    "report": {},
+    "regression": {},
+    "binned": {},
+    "audio": {},
+}
+
+
+def _compile_summary(obj):
+    """One line of ``compile_stats()``: traces/dispatches and the fallback
+    kinds, for a metric, a collection (and its members) or a dict of metrics."""
+    from metrics_tpu_torch import MetricCollection
+
+    def one(cs):
+        kinds = ",".join(sorted(cs["fallback"] or {})) or "-"
+        return f"{cs['traces']}/{cs['dispatches']} fb={kinds}"
+
+    if isinstance(obj, MetricCollection):
+        cs = obj.compile_stats()
+        return f"collection {one(cs['collection'])}; " + "; ".join(f"{k} {one(v)}" for k, v in cs["members"].items())
+    if isinstance(obj, dict):
+        return "; ".join(f"{k} {one(m.compile_stats())}" for k, m in obj.items())
+    return one(obj.compile_stats())
+
+
+def _print_compile(what, obj):
+    print(f"compile_stats {what} (traces/dispatches, fallback kinds): {_compile_summary(obj)}")
+
+
+def _check_compiled(name, obj):
+    """Every member the JAX package compiles dispatched and fell back
+    nowhere; the members it refuses carry its fallback kinds."""
+    from metrics_tpu_torch import MetricCollection
+
+    expected = JAX_FALLBACK_KINDS[name]
+    if isinstance(obj, MetricCollection):
+        cs = obj.compile_stats()
+        assert cs["collection"]["fallback"] is None, f"{name}: collection fell back: {cs['collection']['fallback']}"
+        members, coll_dispatches = cs["members"], cs["collection"]["dispatches"]
+        grouped = {k for keys in obj.compute_group_keys for k in keys}
+    else:
+        members = {k: m.compile_stats() for k, m in obj.items()}
+        coll_dispatches, grouped = 0, set()
+    for key, st in members.items():
+        kinds = set(st["fallback"] or {})
+        assert kinds == expected.get(key, set()), f"{name}.{key}: fallback {st['fallback']}, JAX: {expected.get(key)}"
+        if not kinds:
+            ran = st["dispatches"] > 0 or (key in grouped and coll_dispatches > 0)
+            assert ran, f"{name}.{key}: compiled path never dispatched ({st})"
+
+
+def _compiled_workloads(device):
+    """``(name, make(dev), step(obj, i), steps data)`` of the compiled phase:
+    the flagship, the grouped report, the regression and binned collections
+    (``forward``) and the 2-speaker audio step (``update``)."""
+    from metrics_tpu_torch import (
+        Accuracy,
+        BinnedAveragePrecision,
+        BinnedRecallAtFixedPrecision,
+        MetricCollection,
+        StatScores,
+    )
+
+    rng = np.random.RandomState(0)
+    probs = torch.from_numpy(rng.rand(COMPILED_STEPS, BATCH, NUM_CLASSES).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.randint(0, NUM_CLASSES, (COMPILED_STEPS, BATCH))).to(device)
+    rep_probs, rep_labels = (x.to(device) for x in _report_data())
+    reg_preds, reg_target = (x.to(device) for x in _depth_data())
+    audio = [_wsj_step(2, i, device) for i in range(WSJ_MIXTURES // WSJ_STEP)]
+
+    def flagship(dev):
+        return MetricCollection({
+            "acc": Accuracy(num_classes=NUM_CLASSES, device=dev),
+            "stats": StatScores(reduce="macro", num_classes=NUM_CLASSES, device=dev),
+        })
+
+    def binned(dev):
+        return MetricCollection({
+            "ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev),
+            "rfp": BinnedRecallAtFixedPrecision(
+                num_classes=NUM_CLASSES, min_precision=0.5, thresholds=THRESHOLDS, device=dev),
+        })
+
+    def cycle(preds, target):
+        return lambda mc, i: mc(preds[i % len(preds)], target[i % len(preds)])
+
+    def audio_step(metrics, i):
+        return _audio_step(metrics, *audio[i % len(audio)])
+
+    return [
+        ("flagship", flagship, cycle(probs, labels)),
+        ("report", _report_collection, cycle(rep_probs, rep_labels)),
+        ("regression", _regression_collection, cycle(reg_preds, reg_target)),
+        ("binned", binned, cycle(probs, labels)),
+        ("audio", _audio_metrics, audio_step),
+    ]
+
+
+def _set_knob(obj, knob):
+    for m in obj.values():
+        m.compiled_update = knob
+    return obj
+
+
+def _compiled_run(make, step, device, knob):
+    """``COMPILED_STEPS`` steps with ``compiled_update=knob`` (``None``: the
+    default warm-up, then compiled); host-clock ms of each step ending in a
+    synchronize; then a profile of ``COMPILED_PROFILE_STEPS`` more steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    obj = _set_knob(make(device), knob)
+    torch.cuda.synchronize()
+    step_ms = []
+    for i in range(COMPILED_STEPS):
+        t0 = time.perf_counter()
+        step(obj, i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    states = {k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in _state_leaves_of(obj).items()}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(COMPILED_STEPS, COMPILED_STEPS + COMPILED_PROFILE_STEPS):
+            step(obj, i)
+        torch.cuda.synchronize()
+    n = COMPILED_PROFILE_STEPS
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    graph_launches = sum(1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == "cudaGraphLaunch")
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3 if kernels else None
+    return obj, states, {
+        "tail_ms": step_ms[-COMPILED_TAIL:],
+        "first_compiled_step_ms": step_ms[compiled_warmup_steps()] if knob is None else None,
+        "kernels_per_step": len(kernels) / n if kernels else None,
+        "graph_launches_per_step": graph_launches / n,
+        "syncs_per_step": len(_sync_events(prof)) / n,
+        "busy_ms": busy_ms,
+    }
+
+
+def compiled_warmup_steps():
+    from metrics_tpu_torch.core.compiled import compiled_warmup
+
+    return compiled_warmup()
+
+
+def _state_leaves_of(obj):
+    if isinstance(obj, dict):
+        return {f"{k}.{n}": v for k, m in obj.items() for n, v in m._state.items()}
+    return _state_leaves(obj)
+
+
+def _compiled_phase(smi, device):
+    """Each workload with ``compiled_update=False`` (eager) and with the
+    default (16 eager steps, then CUDA-graph replays), in turns: step ms,
+    kernels and graph launches a step, host syncs, idle share, traces,
+    dispatches and fallbacks; the states equal leaf for leaf (``torch.equal``);
+    the binned run's B1 launches counted through the replays and its states
+    equal to the CPU run's (the kernel's plain twin)."""
+    from metrics_tpu_torch.ops import binned_stats
+
+    print(smi)
+    results = {}
+    for name, make, step in _compiled_workloads(device):
+        t0 = time.perf_counter()
+        runs, tails = {}, {"eager": [], "compiled": []}
+        # in turns (eager, compiled, compiled, eager): the host-bound steps
+        # drift between runs; the medians pool both runs of each path
+        for label in ("eager", "compiled", "compiled", "eager"):
+            launches0 = binned_stats.KERNEL_LAUNCHES
+            obj, states, stats = _compiled_run(make, step, device, False if label == "eager" else None)
+            stats["b1_launches"] = binned_stats.KERNEL_LAUNCHES - launches0
+            tails[label] += stats.pop("tail_ms")
+            runs[label] = (obj, states, stats)
+        for label, (_, _, st) in runs.items():
+            st["step_ms"] = float(np.median(tails[label]))
+            st["idle"] = None if st["busy_ms"] is None else 1 - st["busy_ms"] / st["step_ms"]
+        (eager, eager_states, e), (comp, comp_states, c) = runs["eager"], runs["compiled"]
+        assert sorted(eager_states) == sorted(comp_states)
+        for k, v in eager_states.items():
+            w = comp_states[k]
+            assert v.dtype == w.dtype and torch.equal(v, w), f"{name}: state {k} differs between eager and compiled"
+        _check_compiled(name, comp)
+        assert all(st["dispatches"] == 0 for st in _stats_of(eager)), f"{name}: the eager run dispatched"
+        if name == "binned":
+            # two launches a step, eager or replayed; a program's eager
+            # warm-up (one per trace) launches the kernel once more
+            want = 2 * (COMPILED_STEPS + COMPILED_PROFILE_STEPS) if device.type == "cuda" else 0
+            warmups = sum(st["traces"] for st in _stats_of(comp)) if device.type == "cuda" else 0
+            assert e["b1_launches"] == want and c["b1_launches"] == want + warmups, (e, c, want, warmups)
+            cpu = _set_knob(make("cpu"), False)
+            for i in range(COMPILED_STEPS):
+                step(_CpuInputs(cpu), i)
+            cpu_states = _state_leaves_of(cpu)
+            for k, v in comp_states.items():
+                assert torch.equal(v.cpu(), cpu_states[k]), f"binned: replayed B1 state {k} differs from the plain twin"
+        _print_compile(f"{name} (compiled run)", comp)
+        for label, st in (("eager", e), ("compiled", c)):
+            idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.2f}%"
+            print(f"{name} {label}: step {st['step_ms']:.4f} ms (median of the last {COMPILED_TAIL} of two runs), "
+                  f"{st['kernels_per_step']} kernels/step, {st['graph_launches_per_step']} cudaGraphLaunch/step, "
+                  f"{st['syncs_per_step']} cudaStreamSynchronize/step, device busy {st['busy_ms']} ms/step, idle "
+                  f"{idle}; B1 launches {st['b1_launches']}"
+                  + ("" if st["first_compiled_step_ms"] is None else
+                     f"; step {compiled_warmup_steps() + 1} (probe, warm-up and capture) {st['first_compiled_step_ms']:.2f} ms"))
+        print(f"{name}: states equal leaf for leaf (torch.equal) between the two runs; {time.perf_counter() - t0:.1f} s")
+        results[name] = {"eager": e, "compiled": c}
+    print("compiled phase: " + json.dumps(results))
+    return results
+
+
+class _CpuInputs:
+    """A step function's collection, fed the step's inputs moved to the CPU."""
+
+    def __init__(self, mc):
+        self.mc = mc
+
+    def __call__(self, *args):
+        return self.mc(*(a.cpu() for a in args))
+
+
+def _stats_of(obj):
+    from metrics_tpu_torch import MetricCollection
+
+    if isinstance(obj, MetricCollection):
+        cs = obj.compile_stats()
+        return [cs["collection"], *cs["members"].values()]
+    return [m.compile_stats() for m in obj.values()]
 
 
 # ---------------------------------------------------------------------------
@@ -2737,13 +3011,15 @@ def _telemetry_phase(device, make, batches):
             torch.cuda.synchronize()
         runs[on] = {"ms": float(np.median(step_ms)), "syncs": len(_sync_events(prof)) / 4,
                     "events_per_step": events / (steps - 1), "mc": mc}
+        _print_compile(f"flagship, journal {'on' if on else 'off'}", mc)
     assert runs[True]["syncs"] == runs[False]["syncs"], \
         f"journal on: {runs[True]['syncs']} cudaStreamSynchronize a step, off: {runs[False]['syncs']}"
     print(f"flagship step, journal off: median {runs[False]['ms']:.4f} ms, {runs[False]['syncs']:.1f} "
           f"cudaStreamSynchronize; journal on: median {runs[True]['ms']:.4f} ms "
           f"({100 * (runs[True]['ms'] / runs[False]['ms'] - 1):+.2f}%), {runs[True]['syncs']:.1f} "
           f"cudaStreamSynchronize (equal), {runs[True]['events_per_step']:.2f} events a step (a one-process "
-          "forward crosses no sync, group, health or checkpoint boundary)")
+          "forward crosses no sync, group, health or checkpoint boundary; after the warm-up each compiled "
+          "dispatch journals compiled.dispatch, on the host side of its replay)")
     mc = runs[True]["mc"]
     root = tempfile.mkdtemp(prefix="chip_smoke_telemetry_")
     try:
@@ -2755,8 +3031,12 @@ def _telemetry_phase(device, make, batches):
         assert mc.telemetry()["collection"]["checkpoint"]["saves"] == 2
         assert mc.telemetry()["collection"]["checkpoint"]["pruned_steps"] == 1
         assert loaded.telemetry()["collection"]["checkpoint"]["loads"] == 1
+        # the first save reads the compiled member's states: that hand-out
+        # journals one plan.invalidate (core/plan.py) before the save
         kinds = [e.kind for e in obs.events()]
-        assert kinds == ["checkpoint.save", "checkpoint.save", "checkpoint.prune", "checkpoint.load"], kinds
+        assert [k for k in kinds if not k.startswith("plan.")] == [
+            "checkpoint.save", "checkpoint.save", "checkpoint.prune", "checkpoint.load"], kinds
+        assert kinds.count("plan.invalidate") <= 1, kinds
         path = os.path.join(root, "trace.json")
         obs.export_chrome_trace(path)
         with open(path) as f:
@@ -2913,6 +3193,7 @@ def _wrappers_phase(device):
               + (f", mean/std/quantile/raw within {BOOT_ATOL:.3e}: {errs}" if errs else
                  f" except the {len(affected)} copies with a near-tie draw")
               + f"; the card's run {t1 - t0:.1f} s, the CPU's {t2 - t1:.1f} s, the profiled update {t4 - t3:.1f} s")
+        _print_compile(f"BootStrapper {strategy}", boot)
         del boot
 
     # MetricTracker: an epoch's predictions get better, then worse
@@ -3003,6 +3284,11 @@ def main() -> int:
     print(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.last_build['seconds']:.2f} s)")
     print(_build.last_build["log"].strip())
+    if "--compiled-only" in sys.argv[1:]:
+        # a quick run of the compiled phase alone (no result lines)
+        _phase("compiled: CUDA-graph replay against eager")
+        _compiled_phase(smi, device)
+        return 0
 
     _phase("kernel vs plain on the card")
     max_err = 0.0
@@ -3269,6 +3555,10 @@ def main() -> int:
            f"{WSJ_SAMPLES} samples, {WSJ_MIXTURES // WSJ_STEP} steps of {WSJ_STEP}) and {HUNGARIAN_MIXTURES} "
            f"mixtures of {HUNGARIAN_SPK} speakers (Hungarian); against the CPU run")
     _audio_phase(device)
+
+    _phase(f"compiled: the flagship, grouped report, regression, binned (B1 inside the graph) and 2-speaker audio "
+           f"steps, {COMPILED_STEPS} steps eager and then with the compiled path (16 eager, then CUDA-graph replays)")
+    _compiled_phase(smi, device)
 
     _phase(f"wrappers: BootStrapper(Accuracy(1000), {BOOT_COPIES}) at ImageNet-1k val size ({IMAGENET_VAL} x "
            f"{REPORT_CLASSES} in updates of {BOOT_STEP}), Poisson and multinomial; MetricTracker over "

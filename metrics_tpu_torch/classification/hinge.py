@@ -35,6 +35,7 @@ class Hinge(Metric):
     """
 
     is_differentiable = True
+    _weak_dtype_states = ("measure",)
 
     def __init__(
         self,

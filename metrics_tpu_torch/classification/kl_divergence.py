@@ -33,6 +33,7 @@ class KLDivergence(Metric):
     """
 
     is_differentiable = True
+    _weak_dtype_states = ("measures",)
 
     def __init__(
         self,

@@ -30,9 +30,18 @@ What differs from the JAX package, and why:
 - The defaults do not materialize after the first update (the JAX package
   does so to keep ``lax.scan`` carries stable), so after ``reset()`` the next
   append may fix another item shape.
+- **Inside a compiled program** (``core/compiled.py``) the fill offset is
+  also kept on the device (``_offset``, an int64 scalar), and ``append``
+  writes at it and advances it: a replayed CUDA graph writes the next rows
+  each step, where a host offset baked into the capture would write the same
+  rows again. The host count still moves, by the batch's static row count
+  after each replay, so an append past capacity raises before the replay
+  writes. Whatever sets the count outside a program (``reset``, ``merge``,
+  a load, a sync) makes a new buffer or goes through the metric's state
+  restore, and the next dispatch seeds the device offset from the host count.
 - ``fresh_copy`` (JAX buffer donation) and ``sync_cat_buffer_in_jit`` (the
-  in-``jit`` collective) have no counterpart: nothing here is donated or
-  traced. The host sync of a CatBuffer state is in ``parallel/sync.py``.
+  in-``jit`` collective) have no counterpart. The host sync of a CatBuffer
+  state is in ``parallel/sync.py``.
 
 Padding rows stay zero: the buffer is born zeroed, an append writes only its
 own rows, and ``merge`` copies into a zeroed tail, so :meth:`has_nonfinite`
@@ -46,6 +55,12 @@ from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 __all__ = ["CatBuffer"]
+
+
+def _in_program() -> bool:
+    from metrics_tpu_torch.core.compiled import in_program
+
+    return in_program()
 
 
 class CatBuffer:
@@ -67,7 +82,7 @@ class CatBuffer:
         ([1.0, 2.0, 3.0], [True, True, True, False])
     """
 
-    __slots__ = ("capacity", "buffer", "count", "overflowed", "_shared")
+    __slots__ = ("capacity", "buffer", "count", "overflowed", "_shared", "_offset")
 
     def __init__(
         self,
@@ -85,6 +100,8 @@ class CatBuffer:
         # True while ``buffer`` may be shared with a copy: the next append
         # clones it first
         self._shared = False
+        # the device-side fill offset of a compiled program's state slot
+        self._offset: Optional[torch.Tensor] = None
 
     # -- accumulation ---------------------------------------------------
     def append(self, batch: Union[torch.Tensor, float, int]) -> "CatBuffer":
@@ -109,12 +126,25 @@ class CatBuffer:
                 f"CatBuffer overflow: {self.count} + {n} > capacity {self.capacity}. "
                 "Construct the metric with a larger `with_capacity(...)`."
             )
+        if self._offset is not None and _in_program():
+            rows = self._offset + torch.arange(n, device=self.buffer.device)
+            self.buffer.index_copy_(0, rows, batch.to(device=self.buffer.device, dtype=self.buffer.dtype))
+            self._offset.add_(n)
+            self.count += n
+            return self
         if self._shared:
             self.buffer = self.buffer.clone()
             self._shared = False
         self.buffer[self.count:self.count + n].copy_(batch)
         self.count += n
         return self
+
+    def device_offset(self) -> torch.Tensor:
+        """The fill offset as an int64 scalar on the buffer's device: the
+        program slot's own, or one made from the host count."""
+        if self._offset is not None:
+            return self._offset
+        return torch.full((), self.count, dtype=torch.int64, device=self.buffer.device)
 
     # -- reads ----------------------------------------------------------
     def values(self) -> torch.Tensor:

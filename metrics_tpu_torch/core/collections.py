@@ -21,6 +21,15 @@ update/forward/compute/reset/clone/state_dict, and its two performance seams:
   (``parallel/bucketing.py``); ``compute()`` in a distributed run syncs the
   collection so, once, and the members compute from the synced state.
 
+- **The compiled hot path.** After the warm-up, every eligible unit (a
+  compute group's leader or a solo member) updates in ONE program a step
+  (``core/compiled.py``: a CUDA graph on the card), and a compute group's
+  ``forward`` runs as one program; members the probe refuses stay eager
+  and the program shrinks around them.
+- **The pure state API**: ``init_state``, ``pure_update``, ``pure_compute``,
+  ``pure_forward`` and ``merge_states``, keyed by member, one update per
+  compute group.
+
 ``telemetry()`` returns the collection's snapshot and every member's
 (``{"collection": ..., "members": {key: ...}}``); the planner journals
 ``group.form`` and ``group.detach``, a failed fused sync ``health.failure``.
@@ -35,13 +44,31 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import torch
 from torch import nn
 
+from metrics_tpu_torch.core import plan as plan_mod
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.core.compiled import (
+    CaptureError,
+    CompiledDispatcher,
+    Program,
+    compiled_update_enabled,
+    compiled_warmup,
+    consult_static,
+    dispatch_program,
+    probe_traceable,
+    rebuild_call,
+    split_call,
+    state_signature,
+    tensor_signature,
+)
 from metrics_tpu_torch.core.metric import (
     Metric,
     _check_on_error,
     _ComputeGroup,
     _fire_checkpointer,
     _fresh_state_value,
+    _is_weak,
+    _raise_on_catbuffer_overflow,
+    _set_state,
 )
 from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.observability.diagnostics import warn_once
@@ -394,11 +421,17 @@ class MetricCollection(nn.ModuleDict):
         if not group.members:
             return
         source = group.members[0] if source is None else source
+        # the shared objects pass as they are (a relink hands nothing out);
+        # when they are a compiled program's buffers, every member holds the
+        # latch that makes its next read take copies
+        shared = source._raw_state()
+        latched = source.__dict__.get("_donation_ready", False)
         for m in group.members:
             if m is source:
                 continue
-            for name in source._defaults:
-                nn.Module.__setattr__(m, name, getattr(source, name))
+            for name, v in shared.items():
+                _set_state(m, name, v)
+            object.__setattr__(m, "_donation_ready", latched)
             for attr in type(m)._group_shared_attrs:
                 if hasattr(source, attr):
                     setattr(m, attr, getattr(source, attr))
@@ -455,9 +488,10 @@ class MetricCollection(nn.ModuleDict):
         return out
 
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Each member's ``update`` (one per compute group)."""
+        """Each member's ``update`` (one per compute group); after the warm-up
+        the eligible units update in one compiled program."""
         self._ensure_groups()
-        handled: set = set()
+        handled = self._maybe_compiled_collection_update(args, kwargs)
         for m in self.values():
             if id(m) in handled:
                 continue
@@ -513,6 +547,10 @@ class MetricCollection(nn.ModuleDict):
         if all(not p.compute_on_step for p in group.members):
             self._group_update(group, source, args, kwargs)
             return {id(p): None for p in group.members}
+        grad = any(p._forward_needs_grad(args, kwargs) for p in group.members)
+        compiled = None if grad else self._maybe_compiled_group_forward(group, source, args, kwargs)
+        if compiled is not None:
+            return compiled
         accumulated = source._state
         # no checkpointer fires off the batch state; every member's fires below
         object.__setattr__(source, "_ckpt_suppress", True)
@@ -616,6 +654,9 @@ class MetricCollection(nn.ModuleDict):
         groups = list(self._iter_group_objects())
         for g in groups:
             g.dispatching = True
+        b = plan_mod.peek_binding(self)
+        if b is not None:
+            b.programs.clear()  # they read the members' buffers by address
         try:
             return super()._apply(fn, *args, **kwargs)
         finally:
@@ -680,6 +721,315 @@ class MetricCollection(nn.ModuleDict):
         return MetricCheckpointer(
             self, directory, every_n_updates=every_n_updates, keep_last=keep_last, rank=rank, world=world
         )
+
+    # ---------------- pure state API ----------------
+
+    def init_state(self) -> Dict[str, Dict[str, Any]]:
+        """Every member's fresh state, keyed by member (distinct storage)."""
+        return {k: m.init_state() for k, m in super().items()}
+
+    def _map_members_deduped(self, fn: Callable[[str, Metric], Any]) -> Dict[str, Any]:
+        """``fn(key, member)`` per member, once per compute group: the group's
+        first member runs it and every sibling key gets that result."""
+        self._ensure_groups()
+        out: Dict[str, Any] = {}
+        group_results: Dict[int, Any] = {}
+        for k, m in super().items():
+            g = m._compute_group
+            if g is not None and id(g) in group_results:
+                out[k] = group_results[id(g)]
+                continue
+            result = fn(k, m)
+            if g is not None:
+                group_results[id(g)] = result
+            out[k] = result
+        return out
+
+    def pure_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Functional update of every member's state, one update per compute
+        group (a group reads its first member's subtree; thread the whole
+        state through the collection's ``pure_*`` methods)."""
+        return self._map_members_deduped(lambda k, m: m.pure_update(state[k], *args, **m._filtered_kwargs(kwargs)))
+
+    def pure_compute(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        return {self._set_name(k): m.pure_compute(state[k]) for k, m in super().items()}
+
+    def merge_states(self, a: Dict[str, Any], b: Dict[str, Any]) -> Dict[str, Any]:
+        return self._map_members_deduped(lambda k, m: m.merge_states(a[k], b[k]))
+
+    def pure_sync(self, state: Dict[str, Any], axis_name: Optional[Any] = None, fused: bool = False) -> Dict[str, Any]:
+        """In-graph sync of the members' states: not ported yet."""
+        raise NotImplementedError(
+            "MetricCollection.pure_sync (the in-graph sync over a process-group axis) is not "
+            "ported yet: ROADMAP item 9.3. Sync the stateful collection with sync()/compute()."
+        )
+
+    def pure_forward(
+        self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """One functional step for the whole collection: ``(new_state,
+        batch values)``."""
+        if axis_name is not None:
+            raise NotImplementedError(
+                "MetricCollection.pure_forward(axis_name=...) syncs inside the program: not "
+                "ported yet, ROADMAP item 9.3."
+            )
+        batch = self.pure_update(self.init_state(), *args, **kwargs)
+        return self.merge_states(state, batch), self.pure_compute(batch)
+
+    # ---------------- compiled hot path ----------------
+
+    def _compiled_dispatcher(self) -> CompiledDispatcher:
+        disp = self.__dict__.get("_compiled")
+        if disp is None:
+            disp = CompiledDispatcher("MetricCollection", registry_of(self).domain("compile"), plan_mod.binding(self))
+            self.__dict__["_compiled"] = disp
+        return disp
+
+    def __getstate__(self) -> Dict[str, Any]:
+        state = dict(self.__dict__)
+        for key in ("_compiled", "_plan_binding"):
+            state.pop(key, None)
+        reg = state.get("_telemetry")
+        if reg is not None:
+            state["_telemetry"] = reg.with_fresh_domain("compile")
+        return state
+
+    def _compiled_units(self) -> List[Tuple[str, Metric, Tuple[Metric, ...]]]:
+        """One ``(key, leader, members)`` per dispatch unit: solo members
+        stand alone, compute groups dispatch through their first member."""
+        units: List[Tuple[str, Metric, Tuple[Metric, ...]]] = []
+        seen: set = set()
+        for k, m in super().items():
+            g = m._compute_group
+            if g is None:
+                units.append((k, m, (m,)))
+            elif id(g) not in seen:
+                seen.add(id(g))
+                units.append((k, m, tuple(g.members)))
+        return units
+
+    def _maybe_compiled_collection_update(self, args: Tuple, kwargs: Dict[str, Any]) -> set:
+        """Every compiled-eligible unit's update in ONE program. Returns the
+        ids of the members it handled (empty when nothing ran). With fewer
+        than two eligible units the members' own compiled paths serve; a
+        member that falls back stays on the eager loop and the program
+        shrinks around it."""
+        if not compiled_update_enabled():
+            return set()
+        eligible: List[Tuple[str, Metric, Tuple[Metric, ...]]] = []
+        force = False
+        for k, m, members in self._compiled_units():
+            knob = m.compiled_update
+            if knob is False:
+                continue
+            disp = m._compiled_dispatcher()
+            if "update" in disp.fallback or not m._compiled_static_ok("update", disp):
+                continue
+            force = force or knob is True
+            eligible.append((k, m, members))
+        if len(eligible) < 2:
+            return set()
+        coll_disp = self._compiled_dispatcher()
+        coll_disp.steps_seen += 1
+        if "update" in coll_disp.fallback:
+            return set()
+        if not force and coll_disp.steps_seen <= compiled_warmup():
+            return set()
+        if coll_disp.storming("update"):
+            return set()
+        try:
+            treedef, dyn_ix, statics, dynamic = split_call(args, kwargs)
+        except TypeError:
+            coll_disp.mark_fallback("update", "update arguments contain unhashable non-array values")
+            return set()
+        sigs = []
+        for _k, m, _members in eligible:
+            sig = state_signature(m._raw_state())
+            if sig is None or any(t.device != m.device for t in dynamic) or any(map(_is_weak, m._raw_state().values())):
+                return set()  # a state or an input no program owns: eager this step
+            sigs.append(sig)
+        skeleton = (treedef, dyn_ix, statics)
+        pairs = [(k, m) for k, m, _ in eligible]
+        key = ("update", tuple(k for k, _ in pairs), treedef, dyn_ix, statics)
+
+        def fn(states: Dict[str, Any], dyn: List[torch.Tensor]) -> Tuple[Dict[str, Any], Any]:
+            a, kw = rebuild_call(*skeleton, dyn)
+            return {k: m.pure_update(states[k], *a, **m._filtered_kwargs(kw)) for k, m in pairs}, None
+
+        if not coll_disp.probed(key):
+            # the static verdict, member by member: a refuted member falls
+            # back on its own; an all-clean roster skips the probe
+            verdicts = [consult_static([(m, ("update",))]) for _k, m in pairs]
+            for (_k, m), (verdict, detail) in zip(pairs, verdicts):
+                if verdict == "dirty":
+                    m._compiled_dispatcher().mark_fallback("update", detail)
+            if any(v == "dirty" for v, _ in verdicts):
+                return set()
+            if all(v == "clean" for v, _ in verdicts):
+                coll_disp.mark_probed(key)
+        if not coll_disp.probed(key):
+            reason = probe_traceable(fn, {k: m._raw_state() for k, m in pairs}, dynamic, [m for _, m in pairs])
+            if reason is not None:
+                # attribute the failure: each unit alone, so one untraceable
+                # member marks only itself and the rest fuse again next step
+                culprits = 0
+                for k, m in pairs:
+
+                    def solo(state: Dict[str, Any], dyn: List[torch.Tensor], _m: Metric = m) -> Any:
+                        a, kw = rebuild_call(*skeleton, dyn)
+                        return _m.pure_update(state, *a, **_m._filtered_kwargs(kw))
+
+                    solo_reason = probe_traceable(solo, m._raw_state(), dynamic, [m])
+                    if solo_reason is not None:
+                        m._compiled_dispatcher().mark_fallback("update", solo_reason)
+                        culprits += 1
+                if culprits == 0:
+                    coll_disp.mark_fallback("update", reason)
+                return set()
+            coll_disp.mark_probed(key)
+        if any(p._is_synced for _, _, members in eligible for p in members):
+            raise MetricsTPUUserError(
+                "The Metric shouldn't be synced when performing ``update``. "
+                "HINT: Did you forget to call ``unsync``?"
+            )
+        slots: Dict[str, Dict[str, Any]] = {}
+        for (k, m, _), sig in zip(eligible, sigs):
+            slots[k] = m._compiled_dispatcher().slot(sig, m._raw_state())
+            m._state_in(slots[k])
+        device = eligible[0][1].device
+        pkey = key + (tensor_signature(dynamic), tuple(sigs), tuple(m._dtype for _, m, _ in eligible))
+        try:
+            prog = coll_disp.program(
+                pkey,
+                lambda: Program.build(fn, slots, [(slots[k], k) for k, _ in pairs], dynamic, device, coll_disp.pool(device)),
+            )
+        except CaptureError as err:
+            coll_disp.mark_fallback("update", f"compiled dispatch failed ({err})")
+            return set()
+        if prog is None:
+            return set()
+        dispatch_program(coll_disp, "update", prog, dynamic)
+        handled: set = set()
+        for k, m, members in eligible:
+            m._bind_slot(prog.slots[k])
+            try:
+                _raise_on_catbuffer_overflow(prog.slots[k], type(m).__name__)
+            except MetricsTPUUserError:
+                if m._compute_group is not None:
+                    self._break_group(m._compute_group)
+                raise
+            m._update_count += 1
+            m._update_called = True
+            m._computed = None
+            for p in members:
+                handled.add(id(p))
+                if p is m:
+                    continue
+                p._computed = None
+                p._update_called = True
+                p._update_count = m._update_count
+            g = m._compute_group
+            if g is not None:
+                self._relink_group(g, m)
+            for p in members:
+                _fire_checkpointer(p)
+        return handled
+
+    def _maybe_compiled_group_forward(
+        self, group: _ComputeGroup, source: Metric, args: Tuple, kwargs: Dict[str, Any]
+    ) -> Optional[Dict[int, Any]]:
+        """A compute group's ``forward`` as ONE program: the group's update on
+        a fresh batch state, every member's batch compute, the merge into the
+        shared accumulation. Returns ``{id(member): batch value}``, or ``None``
+        for the eager path."""
+        knob = source.compiled_update
+        if knob is False or not compiled_update_enabled():
+            return None
+        members = list(group.members)
+        if any(p.compiled_update is False for p in members):
+            return None
+        if any(p.dist_sync_on_step or p.check_finite for p in members):
+            return None
+        disp = source._compiled_dispatcher()
+        if "forward" in disp.fallback:
+            return None
+        if knob is not True and disp.steps_seen <= compiled_warmup():
+            return None
+        if not source._compiled_static_ok("forward", disp):
+            return None
+        coll_disp = self._compiled_dispatcher()
+        member_keys = tuple(k for k, m in super().items() if m in members)
+        fkind = "forward[" + ",".join(member_keys) + "]"
+        if fkind in coll_disp.fallback:
+            return None
+        if coll_disp.storming(fkind):
+            return None
+        inputs = source._program_inputs(coll_disp, args, source._filtered_kwargs(kwargs), fkind)
+        if inputs is None:
+            return None
+        skey, dynamic, sig = inputs
+        skeleton = skey[1:]
+        key = (fkind,) + skeleton
+        on_step = [p for p in members if p.compute_on_step]
+        # forward's update precedes the batch computes (as in eager, where
+        # the inner update marks every member updated)
+        for p in members:
+            p._update_called = True
+
+        def fn(state: Dict[str, Any], dyn: List[torch.Tensor]) -> Tuple[Dict[str, Any], Any]:
+            a, kw = rebuild_call(*skeleton, dyn)
+            batch = source.pure_update(source._batch_default_state(), *a, **kw)
+            values = tuple(p.pure_compute(batch) for p in on_step)
+            return source._forward_merge(state, batch), values
+
+        if not coll_disp.probed(key):
+            verdict, detail = consult_static([(source, ("update", "merge"))] + [(p, ("compute",)) for p in on_step])
+            if verdict == "dirty":
+                coll_disp.mark_fallback(fkind, detail)
+                return None
+            if verdict != "clean":
+                reason = probe_traceable(fn, source._raw_state(), dynamic, members)
+                if reason is not None:
+                    coll_disp.mark_fallback(fkind, reason)
+                    return None
+            coll_disp.mark_probed(key)
+        slot = disp.slot(sig, source._raw_state())
+        source._state_in(slot)
+        device = source.device
+        pkey = key + (tensor_signature(dynamic), sig, source._dtype)
+        try:
+            prog = coll_disp.program(
+                pkey, lambda: Program.build(fn, slot, [(slot, None)], dynamic, device, coll_disp.pool(device)))
+        except CaptureError as err:
+            coll_disp.mark_fallback(fkind, f"compiled dispatch failed ({err})")
+            return None
+        if prog is None:
+            return None
+        values = dispatch_program(coll_disp, fkind, prog, dynamic)
+        source._bind_slot(slot)
+        try:
+            _raise_on_catbuffer_overflow(slot, type(source).__name__)
+        except MetricsTPUUserError:
+            self._break_group(group)
+            raise
+        source._update_count += 1
+        for p in members:
+            p._update_called = True
+            p._computed = None
+            p._update_count = source._update_count
+        self._relink_group(group, source)
+        out: Dict[int, Any] = {}
+        values_it = iter(values)
+        for p in members:
+            if p.compute_on_step:
+                p._forward_cache = next(values_it)
+                out[id(p)] = p._forward_cache
+            else:
+                out[id(p)] = None
+        for p in members:
+            _fire_checkpointer(p)
+        return out
 
     # ---------------- telemetry ----------------
 

@@ -11,15 +11,22 @@ plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
 screening, and the compute-group protocol ``MetricCollection`` plans with
 (``state_fingerprint``, ``update_identity``, copy-on-write detach); the
 telemetry surface (``telemetry``, ``sync_stats``, ``compile_stats``, the
-health counters and the journal events of a failed sync and a detach).
+health counters and the journal events of a failed sync and a detach); the
+pure state API (``init_state``, ``pure_update``, ``pure_compute``,
+``pure_forward``) and the compiled hot path (``core/compiled.py``), which
+replays ``update``/``forward`` as a CUDA graph after a warm-up.
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
 states are registered buffers (so ``.to()``/``.cuda()`` move them), list
 states are plain Python lists, and ``with_capacity(n)`` turns the list states
 into :class:`~metrics_tpu_torch.core.cat_buffer.CatBuffer` states, which
 ``_apply`` moves and casts. Tensor and list states are never written in
-place; every update assigns a new tensor, so a snapshot (the sync cache, a
-forward's accumulated state) is a dict of references, not copies. A
+place by the eager path; every update assigns a new tensor, so a snapshot
+(the sync cache, a forward's accumulated state) is a dict of references, not
+copies. The compiled path does write in place, into static buffers its CUDA
+graphs own: while a metric's states are those buffers (the donation latch is
+set), any read of a state first gives the metric copies of its own, so no
+tensor a caller holds ever changes under a later replay. A
 CatBuffer is written in place by its ``append``; every path here that would
 let two holders see one buffer hands one of them fresh storage instead
 (``core/cat_buffer.py``). Members of a compute group hold the same state
@@ -34,8 +41,25 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils import _pytree as pytree
 
+from metrics_tpu_torch.core import plan as plan_mod
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.core.compiled import (
+    CaptureError,
+    CompiledDispatcher,
+    Program,
+    compiled_update_enabled,
+    compiled_warmup,
+    consult_static,
+    dispatch_program,
+    in_program,
+    probe_traceable,
+    rebuild_call,
+    split_call,
+    state_signature,
+    tensor_signature,
+)
 from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
 from metrics_tpu_torch.parallel import sync as _sync
@@ -165,7 +189,20 @@ def _fresh_state_value(v: Any) -> Any:
         return [x.clone() for x in v]
     if isinstance(v, CatBuffer):
         return CatBuffer(v.capacity, None if v.buffer is None else v.buffer.clone(), v.count, v.overflowed)
-    return v.clone()
+    return _same_weakness(v, v.clone())
+
+
+def _is_weak(v: Any) -> bool:
+    """Does ``v`` still hold a weakly typed default (``_weak_dtype_states``)?"""
+    return isinstance(v, torch.Tensor) and v.__dict__.get("_weak_dtype", False)
+
+
+def _same_weakness(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``dst``, marked weakly typed when ``src`` is: a copy of a default is
+    still a default."""
+    if _is_weak(src):
+        dst._weak_dtype = True
+    return dst
 
 
 def _copy_state_value(v: Any) -> Any:
@@ -173,6 +210,42 @@ def _copy_state_value(v: Any) -> Any:
     # a merged or synced state, the accumulation forward set aside) has no
     # other live holder, so a copy would only cost a clone at the next append
     return list(v) if isinstance(v, list) else v
+
+
+def _pure_copy(v: Any) -> Any:
+    """A state value for a pure call: lists copied, a CatBuffer copied on
+    write (its appends must not reach the caller's), tensors by reference
+    (updates assign new tensors)."""
+    if isinstance(v, list):
+        return list(v)
+    if isinstance(v, CatBuffer):
+        return v.copy()
+    return v
+
+
+def _set_state(m: "Metric", name: str, v: Any) -> None:
+    """Assign state ``name`` of ``m`` as it is: no release of a compiled
+    program's buffers, no group detach (nn.Module's setattr of a buffer
+    looks the name up, which would hand the old value out)."""
+    if name in m._buffers and isinstance(v, torch.Tensor):
+        m._buffers[name] = v
+    else:
+        nn.Module.__setattr__(m, name, v)
+
+
+def _detached(v: Any) -> Any:
+    if isinstance(v, torch.Tensor):
+        return v.detach()
+    if isinstance(v, list):
+        return [x.detach() if isinstance(x, torch.Tensor) else x for x in v]
+    return v
+
+
+def _first_floating_dtype(tree: Any) -> Optional[torch.dtype]:
+    for leaf in pytree.tree_leaves(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            return leaf.dtype
+    return None
 
 
 def _fire_checkpointer(owner: Any) -> None:
@@ -280,6 +353,7 @@ class Metric(nn.Module):
         sync_timeout: watchdog timeout in seconds of this metric's host
             collectives; ``None`` reads ``METRICS_TPU_SYNC_TIMEOUT_S``
             (default 600), ``0`` disables the watchdog.
+        compiled_update: the compiled hot path (see the class attribute).
 
     ``sync_strict_update_count`` (update-count skew raises instead of
     warning) and ``sync_fused`` (``None`` follows ``METRICS_TPU_FUSED_SYNC``,
@@ -310,6 +384,18 @@ class Metric(nn.Module):
     #: attributes in ``update`` must list them here.
     _group_shared_attrs: Tuple[str, ...] = ()
 
+    #: The compiled hot path (``core/compiled.py``): ``None`` follows
+    #: ``METRICS_TPU_COMPILED_UPDATE`` after the warm-up, ``True`` compiles
+    #: from the first step, ``False`` keeps this metric eager.
+    compiled_update: Optional[bool] = None
+
+    #: States whose float32 default is weakly typed, as the JAX package's
+    #: ``jnp.asarray(0.0)``: while a state still holds a default (after
+    #: construction, ``reset``, or as ``forward``'s batch state), the update's
+    #: floating input dtype becomes its own (a bfloat16 batch keeps a
+    #: bfloat16 sum); what an update wrote keeps its dtype.
+    _weak_dtype_states: Tuple[str, ...] = ()
+
     def __init__(
         self,
         compute_on_step: bool = True,
@@ -321,8 +407,11 @@ class Metric(nn.Module):
         sync_on_error: str = "raise",
         sync_on_missing: str = "raise",
         sync_timeout: Optional[float] = None,
+        compiled_update: Optional[bool] = None,
     ) -> None:
         super().__init__()
+        if compiled_update is not None:
+            self.compiled_update = compiled_update
         self._device = resolve_device(device)
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Any] = {}
@@ -348,13 +437,37 @@ class Metric(nn.Module):
             self.enable_check_finite()
 
     def __setattr__(self, name: str, value: Any) -> None:
-        group = self.__dict__.get("_compute_group")
-        if group is not None and not group.dispatching and name in self._defaults:
-            # a direct state assignment on a grouped member (m.tp = ...) is
-            # an out-of-group mutation: leave the group first, or the next
-            # group dispatch would revert it when re-linking the members
-            self._group_detach_if_stray()
+        d = self.__dict__
+        if name in d.get("_defaults", ()) and not d.get("_pure_mode", False):
+            if d.get("_donation_ready", False):
+                self._release_compiled_state("state-write")
+            group = d.get("_compute_group")
+            if group is not None and not group.dispatching:
+                # a direct state assignment on a grouped member (m.tp = ...)
+                # is an out-of-group mutation: leave the group first, or the
+                # next group dispatch would revert it when re-linking
+                self._group_detach_if_stray()
         super().__setattr__(name, value)
+
+    def __getattr__(self, name: str) -> Any:
+        # reached for the tensor states (nn.Module buffers): a state handed
+        # out while it is a compiled program's static buffer would change
+        # under the next replay, so the metric first takes copies of its own
+        d = self.__dict__
+        if d.get("_donation_ready", False) and name in d["_defaults"] and not d.get("_pure_mode", False):
+            self._release_compiled_state("state-read")
+        return super().__getattr__(name)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        # copies and pickles start with no programs: they hold the original
+        # instance's buffers, and the compile counters describe it alone
+        state = dict(self.__dict__)
+        for key in ("_compiled", "_plan_binding", "_donation_ready"):
+            state.pop(key, None)
+        reg = state.get("_telemetry")
+        if reg is not None:
+            state["_telemetry"] = reg.with_fresh_domain("compile")
+        return state
 
     # ------------------------------------------------------------------
     # state declaration
@@ -393,8 +506,10 @@ class Metric(nn.Module):
             setattr(self, name, [])
         else:
             default = torch.as_tensor(default).to(self._device)
+            if name in type(self)._weak_dtype_states:
+                default._weak_dtype = True
             self._defaults[name] = default
-            self.register_buffer(name, default.clone(), persistent=False)
+            self.register_buffer(name, _same_weakness(default, default.clone()), persistent=False)
 
     @property
     def device(self) -> torch.device:
@@ -403,23 +518,61 @@ class Metric(nn.Module):
 
     @property
     def _state(self) -> Dict[str, Any]:
+        d = self.__dict__
+        if d.get("_donation_ready", False) and not d.get("_pure_mode", False):
+            self._release_compiled_state("state-read")
         return {name: getattr(self, name) for name in self._defaults}
+
+    def _raw_state(self) -> Dict[str, Any]:
+        """The state objects as they are, without handing them out (the
+        compiled path's own access)."""
+        buffers, d = self._buffers, self.__dict__
+        return {name: buffers[name] if name in buffers else d[name] for name in self._defaults}
 
     def _restore(self, state: Dict[str, Any]) -> None:
         # nn.Module's own setattr: restoring (a sync, its unsync, a group
         # re-link) is not a stray mutation that leaves a compute group
+        d = self.__dict__
+        if d.get("_donation_ready", False) and not d.get("_pure_mode", False):
+            if d.get("_compute_group") is None and set(state) >= set(self._defaults):
+                plan_mod.mark_state_mutated(self, "restore")  # every state is replaced: nothing to copy
+            else:
+                self._release_compiled_state("restore")
         for k, v in state.items():
             nn.Module.__setattr__(self, k, _copy_state_value(v))
+
+    def _release_compiled_state(self, reason: str) -> None:
+        """The metric's states are a compiled program's static buffers (the
+        donation latch is set): give it, and the compute-group members that
+        share them, copies of their own, so that nothing handed out changes
+        under a later replay. The next dispatch copies the state back in."""
+        group = self.__dict__.get("_compute_group")
+        members = list(group.members) if group is not None else []
+        if self not in members:
+            members.append(self)
+        fresh = {name: _fresh_state_value(v) for name, v in self._raw_state().items()}
+        for m in members:
+            if m.__dict__.get("_donation_ready", False):
+                for name, v in fresh.items():
+                    _set_state(m, name, v)
+                plan_mod.mark_state_mutated(m, reason)
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "Metric":
         # buffers move with nn.Module's own _apply; the defaults and the
         # list states are not buffers and move here
         self._group_detach_if_stray()
+        if self.__dict__.get("_donation_ready", False):
+            self._release_compiled_state("apply")
+        # programs read the old defaults and buffers by address
+        self._drop_programs()
+        weak = [n for n, v in self._raw_state().items() if _is_weak(v)]
         this = super()._apply(fn, *args, **kwargs)
+        for name in weak:
+            this._buffers[name]._weak_dtype = True
         for name, default in this._defaults.items():
             live = getattr(this, name)
             if isinstance(default, torch.Tensor):
-                this._defaults[name] = fn(default)
+                this._defaults[name] = _same_weakness(default, fn(default))
             elif isinstance(default, CatBuffer):
                 default._apply(fn)
             if isinstance(live, CatBuffer):
@@ -471,7 +624,10 @@ class Metric(nn.Module):
         The batch runs through ``update`` on fresh state, its value is
         computed, and the batch state is merged into the accumulation — one
         update per batch where the state algebra allows, the reference's
-        double update otherwise.
+        double update otherwise. A metric declared differentiable computes
+        the batch value with grad when an input requires it; the running
+        states stay detached. After the warm-up the step replays as one
+        compiled program (``core/compiled.py``), except a step with grad.
         """
         if self._is_synced:
             raise MetricsTPUUserError(
@@ -481,6 +637,11 @@ class Metric(nn.Module):
         if not self.compute_on_step:
             self.update(*args, **kwargs)
             return None
+        grad = self._forward_needs_grad(args, kwargs)
+        if not grad:
+            handled, value = self._maybe_compiled_forward(args, kwargs)
+            if handled:
+                return value
 
         # a stray forward on a grouped member leaves the group before the
         # accumulation is set aside: the merge below appends into it in place
@@ -491,29 +652,30 @@ class Metric(nn.Module):
         object.__setattr__(self, "_ckpt_suppress", True)
         try:
             self._restore(self._batch_default_state())
-            self.update(*args, **kwargs)
-            batch_state = self._state
-
-            # the compute wrapper syncs the batch value only if dist_sync_on_step
-            self._to_sync = self.dist_sync_on_step
-            self._computed = None
+            object.__setattr__(self, "_grad_batch", grad)
             try:
-                self._forward_cache = self.compute()
+                self.update(*args, **kwargs)
+                batch_state = self._state
+
+                # the compute wrapper syncs the batch value only if dist_sync_on_step
+                self._to_sync = self.dist_sync_on_step
+                self._computed = None
+                try:
+                    self._forward_cache = self.compute()
+                finally:
+                    self._to_sync = True
             finally:
-                self._to_sync = True
+                object.__setattr__(self, "_grad_batch", False)
             self._computed = None
             if self.dist_sync_on_step:
                 batch_state = self._state  # the sync context restored the local batch state
+            if grad:
+                batch_state = {k: _detached(v) for k, v in batch_state.items()}
+            accumulated = self._adopt_weak_dtypes(accumulated, (args, kwargs))
 
             if self._can_merge():
                 try:
-                    if type(self).merge_states is Metric.merge_states:
-                        # the accumulation set aside above has no other holder:
-                        # its CatBuffers take the batch rows in place (an append
-                        # that would overflow raises before it writes)
-                        merged = self._merge_states(accumulated, batch_state, in_place=True)
-                    else:
-                        merged = self.merge_states(accumulated, batch_state)
+                    merged = self._forward_merge(accumulated, batch_state)
                 except Exception:
                     self._restore(accumulated)
                     raise
@@ -525,6 +687,42 @@ class Metric(nn.Module):
             object.__setattr__(self, "_ckpt_suppress", False)
         _fire_checkpointer(self)
         return self._forward_cache
+
+    def _forward_merge(self, accumulated: Dict[str, Any], batch_state: Dict[str, Any]) -> Dict[str, Any]:
+        if type(self).merge_states is Metric.merge_states:
+            # the accumulation set aside has no other holder: its CatBuffers
+            # take the batch rows in place (an append that would overflow
+            # raises before it writes)
+            return self._merge_states(accumulated, batch_state, in_place=True)
+        return self.merge_states(accumulated, batch_state)
+
+    def _forward_needs_grad(self, args: Tuple, kwargs: Dict[str, Any]) -> bool:
+        """Does this ``forward`` compute its batch value with grad? Only for a
+        metric declared differentiable, with grad enabled and an input that
+        requires it."""
+        if self.is_differentiable is not True or not torch.is_grad_enabled():
+            return False
+        return any(isinstance(x, torch.Tensor) and x.requires_grad for x in pytree.tree_leaves((args, kwargs)))
+
+    def _adopt_weak_dtypes(self, state: Dict[str, Any], inputs: Any) -> Dict[str, Any]:
+        """``state`` with its weakly typed defaults (``_weak_dtype_states``
+        still holding a default) cast to the first floating input's dtype."""
+        names = [n for n in type(self)._weak_dtype_states if _is_weak(state.get(n))]
+        dtype = _first_floating_dtype(inputs) if names else None
+        if dtype is None:
+            return state
+        out = dict(state)
+        for name in names:
+            if out[name].is_floating_point() and out[name].dtype != dtype:
+                out[name] = out[name].to(dtype)
+        return out
+
+    def _default_value(self, name: str) -> Any:
+        """A fresh copy of state ``name``'s default (weak where declared)."""
+        v = self._defaults[name]
+        if isinstance(v, torch.Tensor):
+            return _same_weakness(v, v.clone())
+        return v.reset() if isinstance(v, CatBuffer) else []
 
     def update(self, *args: Any, **kwargs: Any) -> None:  # noqa: D102 - abstract
         raise NotImplementedError(f"Metric {type(self).__name__} must implement `update`.")
@@ -676,9 +874,13 @@ class Metric(nn.Module):
         return dict(registry_of(self).domain("sync"))
 
     def compile_stats(self) -> Dict[str, Any]:
-        """The ``compile`` domain of :meth:`telemetry` (``traces``,
-        ``dispatches``, ``cache_hits``, ``steps_seen``, ``fallback``): at its
-        defaults until the compiled path is ported."""
+        """The compiled hot path's counters, the ``compile`` domain of
+        :meth:`telemetry`: ``traces`` counts program builds (a capture each on
+        the card; a growing number under a steady workload means shape
+        churn), ``dispatches`` compiled steps (``cache_hits`` = dispatches -
+        traces), ``steps_seen`` the steps the warm-up counted, ``fallback``
+        maps ``"update"``/``"forward"`` to the reason this instance runs
+        eagerly, or is ``None``."""
         return compile_stats_view(registry_of(self).domain("compile"))
 
     def telemetry(self, delta: bool = False) -> Dict[str, Any]:
@@ -853,10 +1055,7 @@ class Metric(nn.Module):
         self._computed = None
         # fresh copies: a subclass that updates in place must not write into
         # the defaults (forward, on the hot path, aliases them instead)
-        self._restore({
-            k: v.clone() if isinstance(v, torch.Tensor) else v.reset() if isinstance(v, CatBuffer) else []
-            for k, v in self._defaults.items()
-        })
+        self._restore({k: self._default_value(k) for k in self._defaults})
         self._is_synced = False
         self._sync_degraded = False
         self._cache = None
@@ -875,6 +1074,7 @@ class Metric(nn.Module):
         buffers that are still empty. Returns ``self``.
         """
         self._group_detach_if_stray()
+        self._drop_programs()
         for name, default in self._defaults.items():
             live = getattr(self, name)
             if isinstance(default, list):
@@ -918,6 +1118,304 @@ class Metric(nn.Module):
             self.add_state(NONFINITE_STATE, torch.zeros((), dtype=torch.int32), dist_reduce_fx="sum")
         self.check_finite = True
         return self
+
+    # ------------------------------------------------------------------
+    # pure state API
+    # ------------------------------------------------------------------
+
+    @property
+    def state_names(self) -> List[str]:
+        """The declared states, in declaration order."""
+        return list(self._defaults)
+
+    def init_state(self) -> Dict[str, Any]:
+        """A fresh state dict: the declared defaults, on storage of their own."""
+        return {k: self._default_value(k) for k in self._defaults}
+
+    def pure_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Functional update: ``state -> new state``. Touches neither the
+        instance's state nor its update count, leaves ``state`` unchanged
+        (a CatBuffer is copied on write) and keeps the autograd graph: the
+        gradient contract runs through ``pure_update`` → :meth:`pure_compute`."""
+        d = self.__dict__
+        saved = self._raw_state()
+        saved_flags = (self._update_count, self._update_called, self._computed, d.get("_pure_mode", False))
+        # inside a compiled program the state is the program's own slot,
+        # which its CatBuffers append to in place
+        program = in_program()
+        object.__setattr__(self, "_pure_mode", True)
+        try:
+            for name, v in state.items():
+                _set_state(self, name, v if program and isinstance(v, CatBuffer) else _pure_copy(v))
+            self.update(*args, **kwargs)
+            return self._raw_state()
+        finally:
+            for name, v in saved.items():
+                _set_state(self, name, v)
+            self._update_count, self._update_called, self._computed, pure = saved_flags
+            object.__setattr__(self, "_pure_mode", pure)
+
+    def pure_compute(self, state: Dict[str, Any]) -> Any:
+        """Functional compute over an explicit state dict (no sync, no cache,
+        no compute-before-update warning)."""
+        d = self.__dict__
+        saved = self._raw_state()
+        saved_flags = (self._computed, d.get("_pure_mode", False))
+        object.__setattr__(self, "_pure_mode", True)
+        try:
+            for name, v in state.items():
+                _set_state(self, name, v)
+            self._computed = None
+            return self.compute()
+        finally:
+            for name, v in saved.items():
+                _set_state(self, name, v)
+            self._computed, pure = saved_flags
+            object.__setattr__(self, "_pure_mode", pure)
+
+    def pure_sync(self, state: Dict[str, Any], axis_name: Optional[Any] = None, fused: bool = False) -> Dict[str, Any]:
+        """In-graph cross-process sync of an explicit state: not ported yet."""
+        raise NotImplementedError(
+            "pure_sync (the in-graph sync over a process-group axis) is not ported yet: "
+            "ROADMAP item 9.3. Sync a stateful metric with sync()/compute()."
+        )
+
+    def pure_forward(self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any) -> Any:
+        """One functional step: ``(new_state, batch_value)``, the batch value
+        from the batch alone, as :meth:`forward` returns it."""
+        if axis_name is not None:
+            raise NotImplementedError(
+                "pure_forward(axis_name=...) syncs inside the program: not ported yet, ROADMAP item 9.3."
+            )
+        batch_state = self.pure_update(self.init_state(), *args, **kwargs)
+        value = self.pure_compute(batch_state)
+        return self.merge_states(state, batch_state), value
+
+    # ------------------------------------------------------------------
+    # compiled hot path (core/compiled.py)
+    # ------------------------------------------------------------------
+
+    def _compiled_dispatcher(self) -> CompiledDispatcher:
+        disp = self.__dict__.get("_compiled")
+        if disp is None:
+            disp = CompiledDispatcher(type(self).__name__, registry_of(self).domain("compile"), plan_mod.binding(self))
+            object.__setattr__(self, "_compiled", disp)
+        return disp
+
+    def _drop_programs(self) -> None:
+        """Forget every program and slot (they read this metric's buffers by
+        address); counters and fallbacks stay."""
+        disp = self.__dict__.get("_compiled")
+        if disp is not None:
+            disp.slots.clear()
+        b = plan_mod.peek_binding(self)
+        if b is not None:
+            b.programs.clear()
+
+    def _nested_metric_attrs(self) -> List[str]:
+        """Attributes holding other metrics (one container level deep):
+        wrappers and compositions whose ``update`` delegates eagerly."""
+        out: List[str] = []
+        for k, v in list(self.__dict__.items()) + list(self._modules.items()):
+            if isinstance(v, Metric):
+                out.append(k)
+            elif isinstance(v, (list, tuple)) and any(isinstance(x, Metric) for x in v):
+                out.append(k)
+            elif isinstance(v, dict) and any(isinstance(x, Metric) for x in v.values()):
+                out.append(k)
+        return out
+
+    def _compiled_static_fallback(self, kind: str) -> Optional[str]:
+        """Statically known reasons ``kind`` never compiles for this instance
+        (``None``: none; the probe still has the last word). Documented design
+        exclusions: marking them emits no diagnostic."""
+        if not self._defaults:
+            return "metric declares no states (update composes or delegates; nothing to compile)"
+        shared = type(self)._group_shared_attrs
+        if shared:
+            return (
+                f"update maintains declared side-effect attribute(s) {shared} "
+                "(input-mode / inferred-num_classes latch) that a compiled "
+                "replay would skip"
+            )
+        for name, default in self._defaults.items():
+            if isinstance(default, list):
+                return (
+                    f"list state {name!r} grows every step and would retrace every "
+                    "step — use with_capacity() for a fixed-shape CatBuffer"
+                )
+        nested = self._nested_metric_attrs()
+        if nested:
+            return f"instance holds nested Metric attribute(s) {nested}; update may delegate to them"
+        if kind == "forward":
+            if not self._can_merge():
+                return "forward uses the non-mergeable double-update replay"
+            if self.dist_sync_on_step:
+                return "dist_sync_on_step runs a host sync between update and compute"
+            if self.check_finite:
+                return (
+                    "check_finite raises eagerly at forward's compute step; only "
+                    "the inner update compiles"
+                )
+        return None
+
+    def _compiled_gate(self, kind: str) -> Optional[CompiledDispatcher]:
+        """The cheap gate of one eager dispatch: the dispatcher when the
+        compiled path should be tried, else ``None``. Counts the warm-up steps
+        for ``kind == "update"`` (forward's inner eager update counts its
+        step)."""
+        knob = self.compiled_update
+        if knob is False or not compiled_update_enabled():
+            return None
+        if self.__dict__.get("_pure_mode", False) or in_program():
+            return None
+        disp = self._compiled_dispatcher()
+        if kind == "update":
+            disp.steps_seen += 1
+        if kind in disp.fallback:
+            return None
+        if knob is not True and disp.steps_seen <= compiled_warmup():
+            return None
+        if not self._compiled_static_ok(kind, disp):
+            return None
+        return disp
+
+    def _compiled_static_ok(self, kind: str, disp: CompiledDispatcher) -> bool:
+        """:meth:`_compiled_static_fallback`, once per (instance, kind)."""
+        marker = ("static_ok", kind)
+        if disp.probed(marker):
+            return True
+        reason = self._compiled_static_fallback(kind)
+        if reason is not None:
+            disp.mark_fallback(kind, reason, warn=False)
+            return False
+        disp.mark_probed(marker)
+        return True
+
+    def _program_fn(self, kind: str, treedef: Any, dyn_ix: Tuple[int, ...], statics: Tuple) -> Callable:
+        """The function a program runs: ``(state, dynamic) -> (new state,
+        batch value)``, the eager computation through the pure API."""
+        if kind == "update":
+
+            def fn(state: Dict[str, Any], dyn: List[torch.Tensor]) -> Tuple[Dict[str, Any], Any]:
+                a, kw = rebuild_call(treedef, dyn_ix, statics, dyn)
+                return self.pure_update(state, *a, **kw), None
+
+        else:
+
+            def fn(state: Dict[str, Any], dyn: List[torch.Tensor]) -> Tuple[Dict[str, Any], Any]:
+                a, kw = rebuild_call(treedef, dyn_ix, statics, dyn)
+                batch = self.pure_update(self._batch_default_state(), *a, **kw)
+                value = self.pure_compute(batch)
+                return self._forward_merge(state, batch), value
+
+        return fn
+
+    def _program_inputs(self, disp: CompiledDispatcher, args: Tuple, kwargs: Dict[str, Any], kind: str):
+        """``(skeleton key, dynamic, state signature)`` of one call, or
+        ``None`` when this call stays eager (its kind fell back, or its state
+        or inputs are not a program's: a list state, a CatBuffer not yet
+        materialized, an input on another device)."""
+        try:
+            treedef, dyn_ix, statics, dynamic = split_call(args, kwargs)
+        except TypeError:
+            disp.mark_fallback(kind, f"{kind} arguments contain unhashable non-array values")
+            return None
+        if any(t.device != self._device for t in dynamic):
+            return None
+        state = self._raw_state()
+        sig = state_signature(state)
+        if sig is None or any(_is_weak(v) for v in state.values()):
+            return None  # a weakly typed default takes its dtype in an eager step first
+        return (kind, treedef, dyn_ix, statics), dynamic, sig
+
+    def _state_in(self, slot: Dict[str, Any]) -> None:
+        """Bring the metric's current state into a program's slot (when the
+        latch is clear, the state lives elsewhere) and seed the device-side
+        CatBuffer offsets from the host counts."""
+        if self.__dict__.get("_donation_ready", False):
+            return
+        for name, v in self._raw_state().items():
+            target = slot[name]
+            if isinstance(target, CatBuffer):
+                if v is not target:
+                    target.buffer.copy_(v.buffer)
+                    target.count, target.overflowed = v.count, v.overflowed
+                target._offset.fill_(target.count)
+            elif v is not target:
+                target.copy_(v)
+
+    def _bind_slot(self, slot: Dict[str, Any]) -> None:
+        """After a dispatch: the metric's states are the slot (latch set)."""
+        for name, v in slot.items():
+            _set_state(self, name, v)
+        plan_mod.mark_donation_ready(self)
+
+    def _compiled_dispatch(self, kind: str, args: Tuple, kwargs: Dict[str, Any]) -> Tuple[bool, Any]:
+        """Run one eager ``update``/``forward`` as one program. Returns
+        ``(handled, batch_value)``; ``handled=False`` sends the caller down the
+        eager path. The program is the eager computation: ``pure_update``
+        (checks skipped, dtype persistence and screening included), and for
+        ``forward`` the batch ``pure_compute`` and the merge."""
+        disp = self._compiled_dispatcher()
+        if disp.storming(kind):
+            return False, None
+        inputs = self._program_inputs(disp, args, kwargs, kind)
+        if inputs is None:
+            return False, None
+        skey, dynamic, sig = inputs
+        fn = self._program_fn(kind, *skey[1:])
+        if not disp.probed(skey):
+            verdict, detail = consult_static([(self, ("update",) if kind == "update" else ("update", "compute", "merge"))])
+            if verdict == "dirty":
+                disp.mark_fallback(kind, detail)
+                return False, None
+            if verdict != "clean":
+                reason = probe_traceable(fn, self._raw_state(), dynamic, [self])
+                if reason is not None:
+                    disp.mark_fallback(kind, reason)
+                    return False, None
+            disp.mark_probed(skey)
+        slot = disp.slot(sig, self._raw_state())
+        self._state_in(slot)
+        key = skey + (tensor_signature(dynamic), sig, self._dtype)
+        try:
+            prog = disp.program(
+                key, lambda: Program.build(fn, slot, [(slot, None)], dynamic, self._device, disp.pool(self._device)))
+        except CaptureError as err:
+            disp.mark_fallback(kind, f"compiled dispatch failed ({err})")
+            return False, None
+        if prog is None:
+            return False, None
+        value = dispatch_program(disp, kind, prog, dynamic)
+        self._bind_slot(slot)
+        _raise_on_catbuffer_overflow(slot, type(self).__name__)
+        return True, value
+
+    def _maybe_compiled_update(self, args: Tuple, kwargs: Dict[str, Any]) -> bool:
+        """The compiled path of one eager ``update`` (called by the update
+        wrapper with the bookkeeping done)."""
+        if self._compiled_gate("update") is None:
+            return False
+        return self._compiled_dispatch("update", args, kwargs)[0]
+
+    def _maybe_compiled_forward(self, args: Tuple, kwargs: Dict[str, Any]) -> Tuple[bool, Any]:
+        """The compiled path of one ``forward``: update + batch compute +
+        merge in one program. Returns ``(handled, batch_value)``."""
+        if self._compiled_gate("forward") is None:
+            return False, None
+        # as the eager path: a stray forward on a grouped member detaches
+        # first, and the metric counts as updated before the batch compute
+        self._group_detach_if_stray()
+        self._update_called = True
+        handled, value = self._compiled_dispatch("forward", args, kwargs)
+        if not handled:
+            return False, None
+        self._update_count += 1
+        self._computed = None
+        self._forward_cache = value
+        _fire_checkpointer(self)
+        return True, value
 
     # ------------------------------------------------------------------
     # compute-group protocol (MetricCollection state/update dedup)
@@ -1280,26 +1778,38 @@ def _wrap_update(update: Callable) -> Callable:
                 "The Metric shouldn't be synced when performing ``update``. "
                 "HINT: Did you forget to call ``unsync``?"
             )
+        d = self.__dict__
+        if d.get("_pure_mode", False):
+            # the pure API (and a compiled program through it): an explicit
+            # state, no bookkeeping, the caller's grad mode
+            return _run_update(self, update, args, kwargs)
         # a direct update on one member of a compute group leaves the group
         # before it mutates anything shared
         self._group_detach_if_stray()
         self._computed = None
         self._update_called = True
         self._update_count += 1
-        screening = self.check_finite and NONFINITE_STATE in self._defaults
-        if screening:
-            # the screen covers only the list entries this update appends
-            prev_list_lens = {name: len(v) for name, v in self._state.items() if isinstance(v, list)}
-        with torch.no_grad():
-            out = update(self, *args, **kwargs)
-            if self._dtype is not None:
-                self._restore(_cast_floating(self._state, self._dtype))
-            if screening:
-                # latch, never clear; fx="sum" carries the flag through merges
-                flag = _update_nonfinite_flag(self._state, (args, kwargs), prev_list_lens, self._device)
-                self._restore({NONFINITE_STATE: torch.maximum(getattr(self, NONFINITE_STATE), flag)})
-        _raise_on_catbuffer_overflow(self._state, type(self).__name__)
-        if not self.__dict__.get("_ckpt_suppress", False):
+        if self._maybe_compiled_update(args, kwargs):
+            # one program ran the whole update; only the host hooks remain
+            if not d.get("_ckpt_suppress", False):
+                _fire_checkpointer(self)
+            return None
+        if d.get("_donation_ready", False):
+            self._release_compiled_state("eager-update")
+        # the running states never keep the graph (a list state's entry is
+        # the caller's tensor: detached); forward's batch update keeps it for
+        # a differentiable metric's batch value (_grad_batch)
+        if d.get("_grad_batch", False):
+            out = _run_update(self, update, args, kwargs)
+        else:
+            lens = {name: len(v) for name, v in self._raw_state().items() if isinstance(v, list)}
+            with torch.no_grad():
+                out = _run_update(self, update, args, kwargs)
+            for name, n in lens.items():
+                v = self._raw_state()[name]
+                if any(isinstance(x, torch.Tensor) and x.requires_grad for x in v[n:]):
+                    _set_state(self, name, v[:n] + _detached(v[n:]))
+        if not d.get("_ckpt_suppress", False):
             # periodic durability (Metric.checkpointer); forward suppresses
             # this for its batch-state update and fires once it has merged
             _fire_checkpointer(self)
@@ -1309,10 +1819,36 @@ def _wrap_update(update: Callable) -> Callable:
     return wrapped_func
 
 
+def _run_update(self: Metric, update: Callable, args: Tuple, kwargs: Dict[str, Any]) -> Any:
+    """The update body with what every update carries: the weak-dtype
+    adoption, ``set_dtype``'s re-cast, the ``check_finite`` screen and the
+    overflow check of a loaded CatBuffer."""
+    if type(self)._weak_dtype_states:
+        state = self._raw_state()
+        adopted = self._adopt_weak_dtypes(state, (args, kwargs))
+        if adopted is not state:
+            self._restore(adopted)
+    screening = self.check_finite and NONFINITE_STATE in self._defaults
+    if screening:
+        # the screen covers only the list entries this update appends
+        prev_list_lens = {name: len(v) for name, v in self._raw_state().items() if isinstance(v, list)}
+    out = update(self, *args, **kwargs)
+    if self._dtype is not None:
+        self._restore(_cast_floating(self._raw_state(), self._dtype))
+    if screening:
+        # latch, never clear; fx="sum" carries the flag through merges
+        flag = _update_nonfinite_flag(self._raw_state(), (args, kwargs), prev_list_lens, self._device)
+        self._restore({NONFINITE_STATE: torch.maximum(self._raw_state()[NONFINITE_STATE], flag)})
+    _raise_on_catbuffer_overflow(self._raw_state(), type(self).__name__)
+    return out
+
+
 def _wrap_compute(compute: Callable) -> Callable:
     @functools.wraps(compute)
     def wrapped_func(self: Metric, *args: Any, **kwargs: Any) -> Any:
-        if not self._update_called:
+        d = self.__dict__
+        pure = d.get("_pure_mode", False)
+        if not self._update_called and not pure:
             rank_zero_warn(
                 f"The ``compute`` method of metric {type(self).__name__} was called before "
                 "the ``update`` method which may lead to errors, as metric states have not "
@@ -1321,9 +1857,12 @@ def _wrap_compute(compute: Callable) -> Callable:
             )
         if self._computed is not None:
             return self._computed
-        should = self._to_sync and not self._is_synced
-        screening = self.check_finite and NONFINITE_STATE in self._defaults
-        if screening and not self._distributed_available() and state_poisoned(self._state):
+        if d.get("_donation_ready", False) and not pure:
+            # a value may be a view of a state: it must not see later replays
+            self._release_compiled_state("compute")
+        should = self._to_sync and not self._is_synced and not pure
+        screening = self.check_finite and NONFINITE_STATE in self._defaults and not in_program()
+        if screening and not self._distributed_available() and state_poisoned(self._raw_state()):
             # one process: refuse here (in a world, the sync header raises on
             # every rank together instead; raising before it would strand
             # the healthy ranks in their gather)

@@ -37,6 +37,11 @@ def _pearson_corrcoef_update(
     mx_new = (n_prior * mean_x + torch.mean(preds) * n_obs) / (n_prior + n_obs)
     my_new = (n_prior * mean_y + torch.mean(target) * n_obs) / (n_prior + n_obs)
     n_new = n_prior + n_obs
+    # a half-precision batch meets float32 moments in float32, as in the JAX
+    # package: torch would keep a dimensioned half tensor half against a
+    # 0-d float32 one (the means above stay in the input's dtype there too)
+    preds = preds.to(torch.promote_types(preds.dtype, mx_new.dtype))
+    target = target.to(torch.promote_types(target.dtype, my_new.dtype))
     var_x = var_x + torch.sum((preds - mx_new) * (preds - mean_x))
     var_y = var_y + torch.sum((target - my_new) * (target - mean_y))
     corr_xy = corr_xy + torch.sum((preds - mx_new) * (target - mean_y))

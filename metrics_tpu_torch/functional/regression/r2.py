@@ -6,7 +6,7 @@ from typing import Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_concrete
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 
@@ -32,8 +32,11 @@ def _r2_score_compute(
     adjusted: int = 0,
     multioutput: str = "uniform_average",
 ) -> torch.Tensor:
-    n_obs = int(n_obs)  # the count decides the branches below: one host read of a state
-    if n_obs < 2:
+    # the count decides the checks below: one host read of a state, eager
+    # only (a compiled forward's batch count follows from its input shapes,
+    # and its program's eager warm-up made this check)
+    count = int(n_obs) if not isinstance(n_obs, torch.Tensor) or _is_concrete(n_obs) else None
+    if count is not None and count < 2:
         raise ValueError("Needs at least two samples to calculate r2 score.")
 
     mean_obs = sum_obs / n_obs
@@ -54,7 +57,10 @@ def _r2_score_compute(
 
     if adjusted < 0 or not isinstance(adjusted, int):
         raise ValueError("`adjusted` parameter should be an integer larger or equal to 0.")
-    if adjusted != 0:
+    if adjusted != 0 and count is None:
+        r2 = torch.where(n_obs - 1 > adjusted, 1 - (1 - r2) * (n_obs - 1) / (n_obs - adjusted - 1), r2)
+    elif adjusted != 0:
+        n_obs = count
         if adjusted > n_obs - 1:
             rank_zero_warn(
                 "More independent regressions than data points in adjusted r2 score."

@@ -8,7 +8,7 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_concrete
 
 
 def _tweedie_deviance_score_update(
@@ -18,27 +18,30 @@ def _tweedie_deviance_score_update(
     if 0 < power < 1:
         raise ValueError(f"Deviance Score is not defined for power={power}.")
 
+    # the domain checks read the data: eager only, as in the JAX package
+    concrete = _is_concrete(preds, targets)
     if power == 0:
         deviance_score = (targets - preds) ** 2
     elif power == 1:
-        if bool(torch.any(preds <= 0)) or bool(torch.any(targets < 0)):
+        if concrete and (bool(torch.any(preds <= 0)) or bool(torch.any(targets < 0))):
             raise ValueError(
                 f"For power={power}, 'preds' has to be strictly positive and 'targets' cannot be negative."
             )
         deviance_score = 2 * (targets * torch.log(targets / preds) + preds - targets)
     elif power == 2:
-        if bool(torch.any(preds <= 0)) or bool(torch.any(targets <= 0)):
+        if concrete and (bool(torch.any(preds <= 0)) or bool(torch.any(targets <= 0))):
             raise ValueError(f"For power={power}, both 'preds' and 'targets' have to be strictly positive.")
         deviance_score = 2 * (torch.log(preds / targets) + targets / preds - 1)
     else:
-        if power < 0 and bool(torch.any(preds <= 0)):
-            raise ValueError(f"For power={power}, 'preds' has to be strictly positive.")
-        if 1 < power < 2 and (bool(torch.any(preds <= 0)) or bool(torch.any(targets < 0))):
-            raise ValueError(
-                f"For power={power}, 'targets' has to be strictly positive and 'preds' cannot be negative."
-            )
-        if power > 2 and (bool(torch.any(preds <= 0)) or bool(torch.any(targets <= 0))):
-            raise ValueError(f"For power={power}, both 'preds' and 'targets' have to be strictly positive.")
+        if concrete:
+            if power < 0 and bool(torch.any(preds <= 0)):
+                raise ValueError(f"For power={power}, 'preds' has to be strictly positive.")
+            if 1 < power < 2 and (bool(torch.any(preds <= 0)) or bool(torch.any(targets < 0))):
+                raise ValueError(
+                    f"For power={power}, 'targets' has to be strictly positive and 'preds' cannot be negative."
+                )
+            if power > 2 and (bool(torch.any(preds <= 0)) or bool(torch.any(targets <= 0))):
+                raise ValueError(f"For power={power}, both 'preds' and 'targets' have to be strictly positive.")
         term_1 = torch.clamp(targets, min=0) ** (2 - power) / ((1 - power) * (2 - power))
         term_2 = targets * preds ** (1 - power) / (1 - power)
         term_3 = preds ** (2 - power) / (2 - power)

@@ -13,9 +13,11 @@ log shipper reads the snapshots of both packages.
   does the collection's ``degraded`` (a degraded overlapped round). The
   tier byte counters (``intra_tier_bytes``, ``inter_tier_bytes``,
   ``inter_tier_bytes_saved``) stay 0 until tiering (A10.3).
-- ``compile`` is what ``compile_stats()`` reads (:func:`compile_stats_view`)
-  and ``plan`` the execution plan's ledger; both stay at their defaults
-  until the compiled path and the one execution plan (A9).
+- ``compile`` is what ``compile_stats()`` reads (:func:`compile_stats_view`),
+  counted by the compiled hot path (``core/compiled.py``); ``plan`` counts
+  the plan bindings' invalidations by reason (``core/plan.py``). Its
+  ``builds``, ``cache_hits`` and ``fused_steps`` stay 0 until the
+  ``ExecutionPlan`` store and ``compiled_step`` (ROADMAP A9.3).
 - ``checkpoint`` counts ``saves``, ``loads``, ``pruned_steps``,
   ``auto_snapshots`` and ``refused`` (a synced state refused; the refusal of
   an in-flight round comes with A10.1), bumped by ``core/checkpoint.py``.
@@ -236,6 +238,13 @@ class StatsRegistry:
     def __deepcopy__(self, memo: dict) -> "StatsRegistry":
         new = StatsRegistry(self.label)
         new._domains = {k: _deep_copy_counters(v) for k, v in self._domains.items()}
+        return new
+
+    def with_fresh_domain(self, name: str) -> "StatsRegistry":
+        """A copy whose ``name`` domain starts again from its defaults (a
+        copied metric's ``compile`` counters describe the copy alone)."""
+        new = self.__deepcopy__({})
+        new._domains.pop(name, None)
         return new
 
 

@@ -17,6 +17,8 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
@@ -110,6 +112,10 @@ def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     if _lib is None:
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            # a build (nvcc, seconds) must never run inside a CUDA graph
+            # capture: the compiled path's eager warm-up loads it first
+            raise RuntimeError("the binned_stats kernel library is not loaded yet; load it before a CUDA graph capture")
         lib = ctypes.CDLL(str(library_path()))
         fn = lib.binned_stats_launch
         fn.argtypes = [

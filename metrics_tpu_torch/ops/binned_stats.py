@@ -13,7 +13,13 @@ Three implementations, equal bit for bit (ties and NaN included):
   ``metrics_tpu/ops/pallas_binned.py::_kernel``. Every CUDA tensor goes here.
   It has two designs, picked by :func:`_plan` from the shapes alone: the
   shared-memory bucket histogram, and the compare kernel for thresholds too
-  many for the histogram's tables.
+  many for the histogram's tables. The launch is a registered op
+  (``metrics_tpu_torch::binned_stats``) with a fake implementation, so that
+  the compiled path's probe sees through it under ``FakeTensorMode`` and a
+  CUDA graph capture records the kernel (and its scratch memset) on the
+  capture stream. ``KERNEL_LAUNCHES`` counts a launch where the op body runs:
+  once at a capture, which launches nothing; ``core/compiled.py`` takes the
+  capture's count back and adds it again at every replay.
 - :func:`_binned_stats_compare` — a broadcast ``[N, C, T]`` compare, the
   oracle the others are held against.
 - :func:`_binned_stats_bucket` — the histogram kernel's algorithm in torch:
@@ -162,13 +168,49 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@torch.library.custom_op("metrics_tpu_torch::binned_stats", mutates_args=(), device_types="cuda")
+def _binned_stats_op(preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor, design: str) -> torch.Tensor:
+    """One launch of the CUDA kernel on validated inputs: the float32
+    ``[3, C, T]`` counts. ``design`` is ``"histogram"``, ``"compare"`` or
+    ``""`` (let :func:`_plan` pick)."""
+    global KERNEL_LAUNCHES
+    from metrics_tpu_torch.ops._build import load_library
+
+    n, c = preds.shape
+    t = thresholds.shape[0]
+    device = preds.device
+    lib = load_library()
+    chosen, tile, rows = _plan(n, c, t, _SMEM_OPTIN, _sm_count(device.index), design=design or None)
+    nbytes = _scratch_bytes(chosen, n, c, t, tile, rows)
+    out = torch.empty((3, c, t), dtype=torch.float32, device=device)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
+    # the C entry launches on the current device's context: switch only when
+    # the tensors live on another card
+    switch = device.index != torch.cuda.current_device()
+    with torch.cuda.device(device) if switch else contextlib.nullcontext():
+        err = lib.binned_stats_launch(
+            preds.data_ptr(), target.data_ptr(), _TARGET_KINDS[target.dtype], thresholds.data_ptr(),
+            n, c, t, _DESIGNS[chosen], tile, rows,
+            scratch.data_ptr() if nbytes else None, nbytes, out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"binned_stats kernel ({chosen}) launch failed with CUDA error {err}")
+    KERNEL_LAUNCHES += 1
+    return out
+
+
+@_binned_stats_op.register_fake
+def _binned_stats_fake(preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor, design: str) -> torch.Tensor:
+    return preds.new_empty((3, preds.shape[1], thresholds.shape[0]), dtype=torch.float32)
+
+
 def _binned_stats_kernel(
     preds: torch.Tensor, target: torch.Tensor, thresholds: torch.Tensor, design: Optional[str] = None
 ) -> Stats:
     """The CUDA kernel: one float32 ``[3, C, T]`` result, returned as three
     views. ``design`` forces the histogram or the compare kernel (for
     comparing the two); ``None`` lets :func:`_plan` pick."""
-    global KERNEL_LAUNCHES
     for name, x in (("preds", preds), ("target", target), ("thresholds", thresholds)):
         if not x.is_cuda:
             raise ValueError(f"binned_stats kernel: `{name}` must be a CUDA tensor, got {x.device}")
@@ -193,30 +235,9 @@ def _binned_stats_kernel(
     t = thresholds.shape[0]
     if c * t >= 2**31 or n >= 2**31:
         raise ValueError(f"binned_stats kernel: shape (N={n}, C={c}, T={t}) exceeds int32 counts")
-    device = preds.device
     if not (n and c and t):
-        return torch.zeros((3, c, t), dtype=torch.float32, device=device).unbind(0)
-    from metrics_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    chosen, tile, rows = _plan(n, c, t, _SMEM_OPTIN, _sm_count(device.index), design=design)
-    nbytes = _scratch_bytes(chosen, n, c, t, tile, rows)
-    out = torch.empty((3, c, t), dtype=torch.float32, device=device)
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=device) if nbytes else None
-    # the C entry launches on the current device's context: switch only when
-    # the tensors live on another card
-    switch = device.index != torch.cuda.current_device()
-    with torch.cuda.device(device) if switch else contextlib.nullcontext():
-        err = lib.binned_stats_launch(
-            preds.data_ptr(), target.data_ptr(), _TARGET_KINDS[target.dtype], thresholds.data_ptr(),
-            n, c, t, _DESIGNS[chosen], tile, rows,
-            scratch.data_ptr() if nbytes else None, nbytes, out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"binned_stats kernel ({chosen}) launch failed with CUDA error {err}")
-    KERNEL_LAUNCHES += 1
-    return out.unbind(0)
+        return torch.zeros((3, c, t), dtype=torch.float32, device=preds.device).unbind(0)
+    return torch.ops.metrics_tpu_torch.binned_stats(preds, target, thresholds, design or "").unbind(0)
 
 
 def binned_stat_scores(

@@ -538,3 +538,60 @@ def call_with_sync_watchdog(fn: Callable[[], T], *, timeout: Optional[float] = N
     if "error" in box:
         raise box["error"]
     return box["value"]
+
+
+def distributed_initialize_with_retry(
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
+    *,
+    max_retries: int = 5,
+    base_backoff_s: float = 0.5,
+    initialize_fn: Optional[Callable[..., None]] = None,
+    **kwargs: Any,
+) -> None:
+    """``torch.distributed.init_process_group`` with exponential-backoff retry.
+
+    Counterpart of the JAX package's ``jax.distributed.initialize`` wrapper,
+    with its arguments: ``coordinator_address`` is the rendezvous
+    (``host:port``, or a full ``init_method`` such as ``tcp://host:port``),
+    ``num_processes`` the world size and ``process_id`` this rank; the other
+    keywords (``backend``, ``timeout``, ...) go to the initializer.
+
+    Binding the coordinator races (the probed free port can be taken by
+    another process) and ranks that dial before the coordinator listens see
+    connection errors. Both are transient: retried with exponential backoff,
+    staggered by rank (deterministic, no RNG). Other errors re-raise at once;
+    an exhausted budget raises :class:`SyncTimeoutError` chained to the last
+    error. ``initialize_fn`` replaces ``init_process_group`` (tests).
+    """
+    if initialize_fn is None:
+        initialize_fn = torch.distributed.init_process_group
+    init_method = coordinator_address if "://" in coordinator_address else f"tcp://{coordinator_address}"
+    transient_markers = (
+        "address already in use",
+        "connection refused",
+        "failed to connect",
+        "unavailable",
+        "deadline exceeded",
+        "bind",
+        "timed out",
+    )
+    last_err: Optional[BaseException] = None
+    for attempt in range(max_retries + 1):
+        try:
+            initialize_fn(init_method=init_method, world_size=num_processes, rank=process_id, **kwargs)
+            return
+        except Exception as err:  # noqa: BLE001 - classified below
+            text = str(err).lower()
+            if not any(marker in text for marker in transient_markers):
+                raise
+            last_err = err
+            if attempt == max_retries:
+                break
+            # stagger ranks so they do not collide again on the same port
+            time.sleep(base_backoff_s * (2**attempt) * (1.0 + 0.1 * (process_id % 8)))
+    raise SyncTimeoutError(
+        f"torch.distributed.init_process_group({init_method!r}, rank {process_id}/"
+        f"{num_processes}) failed after {max_retries + 1} attempts: {last_err}"
+    ) from last_err

@@ -3,14 +3,32 @@
 Counterpart of ``metrics_tpu/utils/checks.py:39-335``. Which of binary /
 multi-label / multi-class / multi-dim multi-class a ``(preds, target)`` pair
 falls into depends only on shapes and dtypes; the value checks read the data
-(one host read each, as in the JAX package's eager path).
+(one host read each, as in the JAX package's eager path). They run only on
+concrete tensors (:func:`_is_concrete`), as the JAX package's run only
+outside a trace: a compiled program (``core/compiled.py``) skips them, and
+its first run is an eager one on a copy of the state, where they raise.
 """
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
+
+
+def _is_concrete(*tensors: torch.Tensor) -> bool:
+    """True when running eagerly: not inside a compiled program (its probe,
+    CPU run or CUDA graph capture), no fake tensor among ``tensors``, and no
+    CUDA graph capturing on the current stream. A host read is legal only
+    then (counterpart of ``metrics_tpu/utils/checks.py:39-50``)."""
+    from metrics_tpu_torch.core.compiled import in_program
+
+    if in_program():
+        return False
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        return False
+    return not (any(t.is_cuda for t in tensors) and torch.cuda.is_current_stream_capturing())
 
 
 def _is_floating(x: torch.Tensor) -> bool:
@@ -99,7 +117,9 @@ def _validate_values(
     num_classes: Optional[int],
     multiclass: Optional[bool],
 ) -> None:
-    """Value-dependent validation (reads the data on the host)."""
+    """Value-dependent validation (reads the data on the host); eager only."""
+    if not _is_concrete(preds, target):
+        return
     if _is_floating(target):
         raise ValueError("The `target` has to be an integer tensor.")
     _check_not_empty(target)
@@ -213,6 +233,7 @@ def _check_classification_inputs(
         and not top_k
         and _is_floating(preds)
         and not 0 < threshold < 1
+        and _is_concrete(preds)
         and bool(torch.all((preds >= 0) & (preds <= 1)))
     ):
         raise ValueError(
@@ -309,7 +330,7 @@ def _check_retrieval_target_and_prediction_types(
         raise ValueError("`target` must be a tensor of booleans, integers or floats")
     if not _is_floating(preds):
         raise ValueError("`preds` must be a tensor of floats")
-    if not allow_non_binary_target and target.numel():
+    if not allow_non_binary_target and target.numel() and _is_concrete(target):
         flat = target.reshape(-1).to(torch.float32 if target.is_floating_point() else torch.int64)
         lo, hi = torch.stack(torch.aminmax(flat)).tolist()  # one host read
         if int(hi) > 1 or int(lo) < 0:

@@ -78,3 +78,8 @@ class CheckpointCorruptError(CheckpointError):
     whole file *before* mutating any metric state, so a corrupt checkpoint
     can never partially resume: the typed error is the only outcome.
     """
+
+
+#: The source library's name for :class:`MetricsTPUUserError`, kept for
+#: users migrating from it.
+TorchMetricsUserError = MetricsTPUUserError

@@ -1,9 +1,12 @@
-"""Rank-zero gated warnings (counterpart of ``metrics_tpu/utils/prints.py``)."""
+"""Rank-zero gated warnings and logging (counterpart of ``metrics_tpu/utils/prints.py``)."""
+import logging
 import warnings
-from functools import partial
-from typing import Any
+from functools import partial, wraps
+from typing import Any, Callable
 
 import torch.distributed as dist
+
+log = logging.getLogger("metrics_tpu_torch")
 
 
 def _rank() -> int:
@@ -12,10 +15,32 @@ def _rank() -> int:
     return 0
 
 
+def rank_zero_only(fn: Callable) -> Callable:
+    """Call ``fn`` on process 0 only; a no-op returning ``None`` elsewhere."""
+
+    @wraps(fn)
+    def wrapped_fn(*args: Any, **kwargs: Any) -> Any:
+        if _rank() == 0:
+            return fn(*args, **kwargs)
+        return None
+
+    return wrapped_fn
+
+
 def rank_zero_warn(message: str, *args: Any, stacklevel: int = 3, **kwargs: Any) -> None:
     """``warnings.warn`` on process 0 only; a no-op on the other ranks."""
     if _rank() == 0:
         warnings.warn(message, *args, stacklevel=stacklevel, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(message: str, *args: Any, **kwargs: Any) -> None:
+    log.info(message, *args, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(message: str, *args: Any, **kwargs: Any) -> None:
+    log.debug(message, *args, **kwargs)
 
 
 #: ``rank_zero_warn`` with ``category=DeprecationWarning``.

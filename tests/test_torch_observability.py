@@ -374,6 +374,10 @@ def test_disabled_step_path_allocates_nothing_in_observability():
                                 "r": port.Recall(num_classes=3, device="cpu"),
                                 "a": port.Accuracy(num_classes=3, device="cpu")})
     m = _Sum()
+    # as the JAX twin (tests/observability/test_disabled_overhead.py): the
+    # compiled path engages in the warm-up, and the window is its steady state
+    for metric in (*mc.values(), m):
+        metric.compiled_update = True
     x, y = torch.tensor([0, 1, 2, 1]), torch.tensor([0, 2, 1, 1])
     for _ in range(3):
         mc.update(x, y)
@@ -388,6 +392,7 @@ def test_disabled_step_path_allocates_nothing_in_observability():
     finally:
         tracemalloc.stop()
     assert journal.events() == []
+    assert m.compile_stats()["dispatches"] == 53  # the compiled path ran
     grown = [s for s in after.compare_to(before, "filename")
              if s.size_diff > 0 and any(f.filename.startswith(OBS_DIR) for f in s.traceback)]
     assert grown == [], [(s.traceback[0].filename, s.size_diff) for s in grown]
@@ -471,7 +476,8 @@ def test_telemetry_has_every_domain_with_the_reference_keys():
     t, want = m.telemetry(), r.telemetry()
     assert t["schema"] == "metrics_tpu.telemetry.v1" == obs.TELEMETRY_SCHEMA and t["label"] == "_Sum"
     assert _keys(t) == _keys(want)
-    assert t["compile"] == {"traces": 0, "dispatches": 0, "cache_hits": 0, "steps_seen": 0, "fallback": None}
+    assert t["compile"] == want["compile"] == {"traces": 0, "dispatches": 0, "cache_hits": 0, "steps_seen": 1,
+                                                "fallback": None}
     assert t["sync"] == registry.DOMAIN_DEFAULTS["sync"] and t["checkpoint"]["saves"] == 0
     assert t["health"]["sync_failures"] == 0 and t["process"]["channel_suspect"] is False
 

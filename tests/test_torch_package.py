@@ -278,3 +278,73 @@ def test_load_checkpoint_restores_onto_the_metric_device(tmp_path):
         port.save_checkpoint(acc, str(tmp_path / device), rank=0, world=1)
         restored = port.load_checkpoint(port.Accuracy(device=device), str(tmp_path / device), rank=0, world=1)
         assert all(v.device.type == device for v in restored._state.values())
+
+
+# ---- the import surface (ROADMAP C.20) --------------------------------------
+
+#: Names of the JAX subpackages' ``__init__`` the port does not export yet,
+#: each with its reason: items still queued in ROADMAP.md §A and the no-twin
+#: list there.
+NOT_YET = {
+    "utils": {"compile_cache": "no twin: the XLA disk cache"},
+    "models": {"inception_v3_apply": "no twin: the nn.Module is the form", "inception_v3_init": "no twin: ditto"},
+    "parallel": {
+        **{n: "A9.3: in-graph collectives" for n in ("sync_in_jit", "sync_leaf_in_jit", "jit_distributed_available")},
+        **{n: "A10.1: overlapped sync" for n in (
+            "AsyncSyncRound", "STALENESS_POLICIES", "drain_round", "launch_round", "resolve_round")},
+        **{n: "A10.2: quorum, probation, the adaptive controller" for n in (
+            "AdaptiveController", "Membership", "adaptive_sync_timeout", "advance_membership", "channel_gate",
+            "channel_probe_succeeded", "commit_schedule_decision", "configure_probation", "current_membership",
+            "effective_world", "last_schedule_decisions", "live_count", "live_ranks", "maybe_rejoin",
+            "membership_epoch", "negotiate_quorum", "reset_membership", "reset_resilience",
+            "set_quorum_transport", "sync_channel")},
+    },
+}
+SUBPACKAGES = sorted(p.parent.name for p in (ROOT / "metrics_tpu").glob("*/__init__.py")
+                     if (ROOT / "metrics_tpu_torch" / p.parent.name / "__init__.py").exists())
+
+
+def _reference_exports(sub):
+    tree = ast.parse((ROOT / "metrics_tpu" / sub / "__init__.py").read_text())
+    return sorted({a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom) for a in node.names})
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_every_reference_subpackage_name_imports_from_the_same_path(sub):
+    import importlib
+
+    mod = importlib.import_module(f"metrics_tpu_torch.{sub}")
+    missing = [n for n in _reference_exports(sub) if n not in NOT_YET.get(sub, {}) and not hasattr(mod, n)]
+    assert missing == [], f"metrics_tpu_torch.{sub} lacks {missing}"
+    stale = [n for n in NOT_YET.get(sub, {}) if hasattr(mod, n)]
+    assert stale == [], f"{stale} are ported now: take them out of NOT_YET"
+    if sub == "utils":
+        assert mod.TorchMetricsUserError is mod.MetricsTPUUserError
+
+
+def test_distributed_initialize_with_retry_backs_off_on_transient_errors():
+    from metrics_tpu_torch.parallel import distributed_initialize_with_retry
+    from metrics_tpu_torch.utils.exceptions import SyncTimeoutError
+
+    calls = []
+
+    def flaky(**kw):
+        calls.append(kw)
+        if len(calls) < 3:
+            raise RuntimeError("The server socket has failed to bind: address already in use")
+
+    distributed_initialize_with_retry("localhost:29500", 2, 1, base_backoff_s=0.0, initialize_fn=flaky, backend="gloo")
+    assert len(calls) == 3
+    assert calls[-1] == {"init_method": "tcp://localhost:29500", "world_size": 2, "rank": 1, "backend": "gloo"}
+
+    def broken(**kw):
+        raise ValueError("bad rank")
+
+    with pytest.raises(ValueError, match="bad rank"):
+        distributed_initialize_with_retry("tcp://h:1", 2, 0, base_backoff_s=0.0, initialize_fn=broken)
+
+    def refused(**kw):
+        raise RuntimeError("Connection refused")
+
+    with pytest.raises(SyncTimeoutError, match="after 3 attempts"):
+        distributed_initialize_with_retry("h:1", 2, 0, max_retries=2, base_backoff_s=0.0, initialize_fn=refused)
