@@ -1432,6 +1432,56 @@ def _fid_corrected(fid):
             for side in ("real", "fake") for base in ("sum", "outer")}
 
 
+OVERLAP_STEPS, OVERLAP_EVERY = 32, 8
+
+
+def _overlap_rank(rank, world, device, out_dir):
+    """The report collection on this rank's half of the report batches
+    (cycled), ``OVERLAP_STEPS`` steps with a ``compute()`` every
+    ``OVERLAP_EVERY``, under ``sync_mode="blocking"`` and ``"overlap"``:
+    per-step and per-compute ms, the values served, the ``sync`` ledger; then
+    a checkpoint snapshot with a round in flight, which must be refused."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import save_checkpoint
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    probs, labels = _report_data()
+    share = slice(rank * STEPS // world, (rank + 1) * STEPS // world)
+    probs, labels = probs[share].to(device), labels[share].to(device)
+    out = {}
+    for mode in ("blocking", "overlap", "overlap", "blocking"):  # in turns; the second of each is kept
+        mc = _report_collection(device)
+        mc.sync_mode = mode
+        values, step_ms, compute_ms = [], [], []
+        dist.barrier()
+        torch.cuda.synchronize()
+        for i in range(OVERLAP_STEPS):
+            t0 = time.perf_counter()
+            mc.update(probs[i % len(probs)], labels[i % len(probs)])
+            due = (i + 1) % OVERLAP_EVERY == 0
+            if due:
+                values.append({k: v.clone() for k, v in mc.compute().items()})
+            torch.cuda.synchronize()
+            (compute_ms if due else step_ms).append((time.perf_counter() - t0) * 1e3)
+        record = {"values": [{k: v.cpu() for k, v in vals.items()} for vals in values],
+                  "step_ms": float(np.median(step_ms)), "compute_step_ms": compute_ms}
+        if mode == "overlap":
+            # the last compute() launched the next round: a snapshot while it
+            # holds the accumulation is refused
+            assert mc.__dict__["_inflight_round"] is not None
+            try:
+                save_checkpoint(mc, os.path.join(out_dir, "ckpt", f"overlap{rank}"), step=0)
+                record["snapshot"] = "no error"
+            except MetricsTPUUserError as err:
+                record["snapshot"] = f"refused: {str(err)[:80]}"
+            mc.unsync()  # cancel: drain and fold back
+            record["stats"] = mc.sync_stats()["collection"]
+        out[mode] = record
+        del mc
+    return out
+
+
 def _sync_rank(rank, world, port_no, out_dir, device):
     """One rank of the sync phase, a process of its own, with its states on
     ``device`` (``cuda:0`` for every rank)."""
@@ -1511,6 +1561,15 @@ def _sync_rank(rank, world, port_no, out_dir, device):
                 # this rank's shard (rank and world from the process group)
                 save_checkpoint(mc, os.path.join(out_dir, "ckpt", name), step=0)
             del mc
+
+        # the overlap part runs with the journal off: its background lane's
+        # events interleave with the step's own in a per-rank order
+        obs.disable()
+        n_rounds = len(rounds)
+        out["overlap"] = _overlap_rank(rank, world, device, out_dir)
+        out["overlap"]["rounds"] = len(rounds) - n_rounds
+        del rounds[n_rounds:]
+        obs.enable()
 
         # retrieval: half of the queries on each rank, capacity mode
         data = _msmarco_data()
@@ -1626,6 +1685,61 @@ def _sync_rank(rank, world, port_no, out_dir, device):
         dist.destroy_process_group()
 
 
+def _check_overlap(ranks):
+    """The two ranks' overlap runs (``_overlap_rank``): every resolve equal to
+    the blocking value at its cut, the ledger's counts, the refused snapshot."""
+    computes = OVERLAP_STEPS // OVERLAP_EVERY
+    for rank, result in enumerate(ranks):
+        ov = result["overlap"]
+        blocking, overlap = ov["blocking"], ov["overlap"]
+        assert len(blocking["values"]) == len(overlap["values"]) == computes
+        # under "snapshot" each resolve serves the world state at the previous
+        # compute()'s cut: the blocking run's value there, bit for bit
+        for k in range(1, computes):
+            for key, v in blocking["values"][k - 1].items():
+                assert torch.equal(overlap["values"][k][key], v), f"overlap rank {rank}: {key} at compute {k}"
+        st = overlap["stats"]
+        assert (st["launched"], st["resolved"], st["stale_resolves"], st["served_local"], st["cancelled"]) == (
+            computes, computes - 1, computes - 1, 1, 1), st
+        assert overlap["snapshot"].startswith("refused"), overlap["snapshot"]
+        print(f"overlap, rank {rank}: report collection, {OVERLAP_STEPS} steps, compute() every {OVERLAP_EVERY}: "
+              f"update step {blocking['step_ms']:.4f} ms blocking / {overlap['step_ms']:.4f} ms overlap (median); "
+              f"compute steps blocking {[round(x, 3) for x in blocking['compute_step_ms']]} ms, overlap "
+              f"{[round(x, 3) for x in overlap['compute_step_ms']]} ms; launched {st['launched']}, resolved "
+              f"{st['resolved']}, stale {st['stale_resolves']}, served_local {st['served_local']}, cancelled "
+              f"{st['cancelled']}, gather_s {st['gather_s']:.6f}, resolve_wait_s {st['resolve_wait_s']:.6f}, "
+              f"overlap_saved_s {st['overlap_saved_s']:.6f}; {ov['rounds']} host sync rounds; each resolve equal to "
+              f"the blocking value at its cut bit for bit; a snapshot with a round in flight {overlap['snapshot']}")
+
+
+def _overlap_only_rank(rank, world, port_no, out_dir, device):
+    """A rank of the overlap part alone (``--fused-only``)."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port_no}", world_size=world, rank=rank)
+    try:
+        out = {"overlap": _overlap_rank(rank, world, device, out_dir)}
+        out["overlap"]["rounds"] = -1
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _overlap_only_phase(device):
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_overlap_")
+    mp.start_processes(_overlap_only_rank, args=(SYNC_WORLD, port_no, out_dir, str(device)), nprocs=SYNC_WORLD,
+                       join=True, start_method="spawn")
+    _check_overlap([torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)])
+
+
 def _sync_journal_check(ranks):
     """The two ranks' journals of the sync phase: equal ``(kind, label)``
     sequences (lockstep); one ``sync.gather`` a round, the rounds each rank
@@ -1723,6 +1837,7 @@ def _sync_phase(device, report_gpu, report_values, regression, retrieval_values)
                   f"{got['per_leaf']['collectives']} collectives ({got['per_leaf']['bytes']} bytes in) in "
                   f"{got['per_leaf']['ms']:.4f} ms; compute() syncs once ({got['compute_collectives']} collectives); "
                   f"synced states equal to one process over all batches; max abs err of values {errs}")
+    _check_overlap(ranks)
     reg_gpu, reg_values, (state_rtol, value_rtol, kappa) = regression
     want_states = _synced_rows(reg_gpu)
     for rank, result in enumerate(ranks):
@@ -2743,37 +2858,35 @@ def _check_compiled(name, obj):
             assert ran, f"{name}.{key}: compiled path never dispatched ({st})"
 
 
+def _flagship_collection(dev):
+    from metrics_tpu_torch import Accuracy, MetricCollection, StatScores
+
+    return MetricCollection({
+        "acc": Accuracy(num_classes=NUM_CLASSES, device=dev),
+        "stats": StatScores(reduce="macro", num_classes=NUM_CLASSES, device=dev),
+    })
+
+
+def _binned_collection(dev):
+    from metrics_tpu_torch import BinnedAveragePrecision, BinnedRecallAtFixedPrecision, MetricCollection
+
+    return MetricCollection({
+        "ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev),
+        "rfp": BinnedRecallAtFixedPrecision(
+            num_classes=NUM_CLASSES, min_precision=0.5, thresholds=THRESHOLDS, device=dev),
+    })
+
+
 def _compiled_workloads(device):
     """``(name, make(dev), step(obj, i), steps data)`` of the compiled phase:
     the flagship, the grouped report, the regression and binned collections
     (``forward``) and the 2-speaker audio step (``update``)."""
-    from metrics_tpu_torch import (
-        Accuracy,
-        BinnedAveragePrecision,
-        BinnedRecallAtFixedPrecision,
-        MetricCollection,
-        StatScores,
-    )
-
     rng = np.random.RandomState(0)
     probs = torch.from_numpy(rng.rand(COMPILED_STEPS, BATCH, NUM_CLASSES).astype(np.float32)).to(device)
     labels = torch.from_numpy(rng.randint(0, NUM_CLASSES, (COMPILED_STEPS, BATCH))).to(device)
     rep_probs, rep_labels = (x.to(device) for x in _report_data())
     reg_preds, reg_target = (x.to(device) for x in _depth_data())
     audio = [_wsj_step(2, i, device) for i in range(WSJ_MIXTURES // WSJ_STEP)]
-
-    def flagship(dev):
-        return MetricCollection({
-            "acc": Accuracy(num_classes=NUM_CLASSES, device=dev),
-            "stats": StatScores(reduce="macro", num_classes=NUM_CLASSES, device=dev),
-        })
-
-    def binned(dev):
-        return MetricCollection({
-            "ap": BinnedAveragePrecision(num_classes=NUM_CLASSES, thresholds=THRESHOLDS, device=dev),
-            "rfp": BinnedRecallAtFixedPrecision(
-                num_classes=NUM_CLASSES, min_precision=0.5, thresholds=THRESHOLDS, device=dev),
-        })
 
     def cycle(preds, target):
         return lambda mc, i: mc(preds[i % len(preds)], target[i % len(preds)])
@@ -2782,10 +2895,10 @@ def _compiled_workloads(device):
         return _audio_step(metrics, *audio[i % len(audio)])
 
     return [
-        ("flagship", flagship, cycle(probs, labels)),
+        ("flagship", _flagship_collection, cycle(probs, labels)),
         ("report", _report_collection, cycle(rep_probs, rep_labels)),
         ("regression", _regression_collection, cycle(reg_preds, reg_target)),
-        ("binned", binned, cycle(probs, labels)),
+        ("binned", _binned_collection, cycle(probs, labels)),
         ("audio", _audio_metrics, audio_step),
     ]
 
@@ -2918,6 +3031,235 @@ def _stats_of(obj):
         cs = obj.compile_stats()
         return [cs["collection"], *cs["members"].values()]
     return [m.compile_stats() for m in obj.values()]
+
+
+# ---------------------------------------------------------------------------
+# compiled_step: the whole step as one program
+# ---------------------------------------------------------------------------
+
+#: Collections whose whole-step program the JAX package refuses (its probe
+#: refuses Accuracy's mode latch, so the flagship's step runs as phases);
+#: every other collection of the phase fuses.
+JAX_STEP_REFUSED = {"flagship"}
+FUSED_STEPS = 48
+IN_GRAPH_STEPS = 8
+
+
+def _fused_workloads(device):
+    """``(name, make(dev), (preds, target))`` of the fused-step phase: the
+    grouped report, the binned, the regression and the flagship collections
+    at the compiled phase's widths."""
+    rng = np.random.RandomState(0)
+    probs = torch.from_numpy(rng.rand(FUSED_STEPS, BATCH, NUM_CLASSES).astype(np.float32)).to(device)
+    labels = torch.from_numpy(rng.randint(0, NUM_CLASSES, (FUSED_STEPS, BATCH))).to(device)
+    rep = tuple(x.to(device) for x in _report_data())
+    reg = tuple(x.to(device) for x in _depth_data())
+    return [("report", _report_collection, rep), ("binned", _binned_collection, (probs, labels)),
+            ("regression", _regression_collection, reg), ("flagship", _flagship_collection, (probs, labels))]
+
+
+def _profile_counts(prof, n):
+    from torch.autograd import DeviceType
+
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {
+        "kernels_per_step": len(kernels) / n,
+        "graph_launches_per_step": sum(
+            1 for e in prof.events() if e.device_type == DeviceType.CPU and e.name == "cudaGraphLaunch") / n,
+        "syncs_per_step": len(_sync_events(prof)) / n,
+        "busy_ms": sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3 if kernels else None,
+        "nccl_kernels_per_step": sum(1 for e in kernels if "nccl" in e.name.lower()) / n,
+        "device_op_names": sorted({e.name for e in kernels}),
+    }
+
+
+def _clone_tree(tree):
+    from torch.utils import _pytree as pytree
+
+    return pytree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, tree)
+
+
+def _trees_equal(a, b):
+    from torch.utils import _pytree as pytree
+
+    la, lb = pytree.tree_leaves(a), pytree.tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def _fused_run(make, data, device, how, axis=None, steps=None):
+    """``FUSED_STEPS`` steps of update + compute of the accumulated value,
+    ``how``: ``"eager"`` (``compiled_update=False``), ``"replay"`` (PR 11's
+    default: ``update`` replays per program after the warm-up, ``compute()``
+    eager) or ``"step"`` (``compiled_step``, one program a step); host-clock
+    ms of each step ending in a synchronize, then a profile of
+    ``COMPILED_PROFILE_STEPS`` more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    preds, target = data
+    steps = FUSED_STEPS if steps is None else steps
+    obj = _set_knob(make(device), False if how == "eager" else None)
+    state = obj.init_state() if how == "step" else None
+
+    def one(i):
+        nonlocal state
+        p, t = preds[i % len(preds)], target[i % len(preds)]
+        if how == "step":
+            state, values = obj.compiled_step(state, p, t, axis_name=axis)
+            return values
+        obj.update(p, t)
+        return obj.compute()
+
+    torch.cuda.synchronize()
+    step_ms, first_cpu_ops = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        if i == 0 and axis is not None:
+            # the first step builds the program (eager warm-up, then capture):
+            # the host-side collective calls it made
+            with profile(activities=[ProfilerActivity.CPU]) as first:
+                values = one(i)
+            first_cpu_ops = [e.name for e in first.events() if "nccl" in e.name.lower() or "c10d" in e.name.lower()]
+        else:
+            values = one(i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    states = ({f"{k}.{n}": v.clone() for k, s in state.items() for n, v in s.items()} if how == "step" else
+              {k: v.clone() for k, v in _state_leaves_of(obj).items()})
+    values = _clone_tree(values)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps, steps + COMPILED_PROFILE_STEPS):
+            one(i)
+        torch.cuda.synchronize()
+    stats = _profile_counts(prof, COMPILED_PROFILE_STEPS)
+    stats["tail_ms"] = step_ms[-COMPILED_TAIL:]
+    stats["first_step_ms"] = step_ms[0]
+    stats["first_step_collective_ops"] = first_cpu_ops
+    return obj, states, values, stats
+
+
+def _fused_phase(smi, device):
+    """The grouped report, the binned (B1 inside the one graph), the
+    regression and the flagship collections, each three ways in turns
+    (eager, replay, step, step, replay, eager): step ms, ``cudaGraphLaunch``,
+    kernels and host syncs a step, idle share; the step's states and values
+    equal to the eager composition's bit for bit (``torch.equal``); B1's
+    launches counted through the step's replays and its states equal to the
+    plain twin's (the CPU run); the flagship's step refused as the JAX
+    package refuses it, the refusal counted and printed."""
+    from metrics_tpu_torch.ops import binned_stats
+
+    print(smi)
+    results = {}
+    for name, make, data in _fused_workloads(device):
+        t0 = time.perf_counter()
+        runs, tails = {}, {"eager": [], "replay": [], "step": []}
+        for how in ("eager", "replay", "step", "step", "replay", "eager"):
+            launches0 = binned_stats.KERNEL_LAUNCHES
+            obj, states, values, stats = _fused_run(make, data, device, how)
+            stats["b1_launches"] = binned_stats.KERNEL_LAUNCHES - launches0
+            tails[how] += stats.pop("tail_ms")
+            runs[how] = (obj, states, values, stats)
+        for how, (_o, _s, _v, st) in runs.items():
+            st["step_ms"] = float(np.median(tails[how]))
+            st["idle"] = None if st["busy_ms"] is None else 1 - st["busy_ms"] / st["step_ms"]
+            st.pop("device_op_names")
+            st.pop("first_step_collective_ops")
+        _e_obj, e_states, e_values, _e = runs["eager"]
+        step_obj, s_states, s_values, s = runs["step"]
+        assert sorted(e_states) == sorted(s_states), name
+        for k, v in e_states.items():
+            assert v.dtype == s_states[k].dtype and torch.equal(v, s_states[k]), f"{name}: step state {k} differs"
+        for k, v in e_values.items():
+            assert _trees_equal(v, s_values[k]), f"{name}: step value {k} differs from the eager composition"
+        coll = step_obj.compile_stats()["collection"]
+        refusal = (coll["fallback"] or {}).get("step")
+        if name in JAX_STEP_REFUSED:
+            assert refusal is not None and coll["dispatches"] == 0, f"{name}: the JAX package refuses this step"
+            print(f"{name}: compiled_step refused as in the JAX package, counted in compile_stats: {refusal}")
+        else:
+            assert refusal is None, f"{name}: compiled_step fell back: {refusal}"
+            assert coll["dispatches"] == FUSED_STEPS + COMPILED_PROFILE_STEPS and coll["traces"] == 1, coll
+            if device.type == "cuda":
+                assert s["graph_launches_per_step"] == 1.0, f"{name}: {s['graph_launches_per_step']} graph launches"
+        if name == "binned" and device.type == "cuda":
+            # two launches a step in every run; the step's programs (one a
+            # run) launch B1 twice more in their eager warm-up
+            steps = FUSED_STEPS + COMPILED_PROFILE_STEPS
+            assert s["b1_launches"] == 2 * steps + 2, (s["b1_launches"], steps)
+            cpu = make("cpu")
+            cst = cpu.init_state()
+            for i in range(FUSED_STEPS):
+                cst = cpu.pure_update(cst, data[0][i % len(data[0])].cpu(), data[1][i % len(data[0])].cpu())
+            for k, sub in cst.items():
+                for n, v in sub.items():
+                    assert torch.equal(s_states[f"{k}.{n}"].cpu(), v), f"binned: step's B1 state {k}.{n} differs"
+        for how in ("eager", "replay", "step"):
+            st = runs[how][3]
+            idle = "not measured" if st["idle"] is None else f"{100 * st['idle']:.2f}%"
+            print(f"{name} {how}: step {st['step_ms']:.4f} ms (median of the last {COMPILED_TAIL} of two runs), "
+                  f"{st['kernels_per_step']} kernels/step, {st['graph_launches_per_step']} cudaGraphLaunch/step, "
+                  f"{st['syncs_per_step']} cudaStreamSynchronize/step, device busy {st['busy_ms']} ms/step, idle "
+                  f"{idle}; first step {st['first_step_ms']:.2f} ms; B1 launches {st['b1_launches']}")
+        _print_compile(f"{name} (compiled_step run)", step_obj)
+        print(f"{name}: compiled_step states and values equal the eager composition's (torch.equal); "
+              f"{time.perf_counter() - t0:.1f} s")
+        results[name] = {how: runs[how][3] for how in runs}
+    print("fused-step phase: " + json.dumps(results))
+    return results
+
+
+def _in_graph_sync_phase(device):
+    """``compiled_step`` of the grouped report collection with a one-rank
+    NCCL group as its axis: the all-reduce is an NCCL kernel captured in the
+    step's graph (a two-rank NCCL run needs two cards); its states and
+    values equal the run without an axis bit for bit. A gloo group, whose
+    collectives a graph cannot hold, is refused for state on the card."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port_no}", world_size=1, rank=0,
+                            device_id=device)
+    try:
+        preds, target = (x.to(device) for x in _report_data())
+        data = (preds[:IN_GRAPH_STEPS], target[:IN_GRAPH_STEPS])
+        synced = _fused_run(_report_collection, data, device, "step", axis=dist.group.WORLD, steps=IN_GRAPH_STEPS)
+        local = _fused_run(_report_collection, data, device, "step", steps=IN_GRAPH_STEPS)
+        (s_obj, s_states, s_values, s), (_l, l_states, l_values, l_stats) = synced, local
+        for k, v in l_states.items():
+            assert torch.equal(s_states[k], v), f"in-graph sync: state {k} differs from the run without an axis"
+        for k, v in l_values.items():
+            assert _trees_equal(s_values[k], v), f"in-graph sync: value {k} differs from the run without an axis"
+        coll = s_obj.compile_stats()["collection"]
+        assert coll["fallback"] is None and coll["dispatches"] > 0, coll
+        assert s["graph_launches_per_step"] == 1.0, s
+        # the build called ProcessGroupNCCL twice a bucket: in the eager
+        # warm-up and inside the capture
+        nccl_calls = [n for n in s["first_step_collective_ops"] if "nccl" in n.lower()]
+        assert nccl_calls, s["first_step_collective_ops"]
+        added = sorted(set(s["device_op_names"]) - set(l_stats["device_op_names"]))
+        gloo = dist.new_group(backend="gloo")
+        refused = "no error"
+        try:
+            m = _report_collection(device)
+            m.compiled_step(m.init_state(), preds[0], target[0], axis_name=gloo)
+        except MetricsTPUUserError as err:
+            refused = str(err)[:120]
+        assert refused != "no error", "a gloo group on card state was not refused"
+        print(f"in-graph sync: compiled_step(axis_name=<one-rank NCCL group>) of the report collection, "
+              f"{IN_GRAPH_STEPS} steps: {s['graph_launches_per_step']} cudaGraphLaunch/step, "
+              f"{s['nccl_kernels_per_step']} NCCL kernels/step inside it (a one-rank communicator runs the "
+              f"all-reduce as a copy), {s['kernels_per_step']} device ops/step (without the axis "
+              f"{l_stats['kernels_per_step']}; added: {added}); step {np.median(s['tail_ms']):.4f} ms vs "
+              f"{np.median(l_stats['tail_ms']):.4f} ms without the axis; the first step's host-side collective "
+              f"calls (warm-up and capture): {nccl_calls}; states and values equal the run without an axis bit for "
+              f"bit; a gloo group refused: {refused}")
+        return {"synced": s, "local": l_stats}
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
@@ -3289,6 +3631,15 @@ def main() -> int:
         _phase("compiled: CUDA-graph replay against eager")
         _compiled_phase(smi, device)
         return 0
+    if "--fused-only" in sys.argv[1:]:
+        # the fused-step, in-graph sync and overlap phases alone (no result lines)
+        _phase("fused step: compiled_step against eager and per-program replay")
+        _fused_phase(smi, device)
+        _phase("in-graph sync: compiled_step over a one-rank NCCL group")
+        _in_graph_sync_phase(device)
+        _phase("overlap: two gloo ranks on the card, blocking against overlap")
+        _overlap_only_phase(device)
+        return 0
 
     _phase("kernel vs plain on the card")
     max_err = 0.0
@@ -3559,6 +3910,14 @@ def main() -> int:
     _phase(f"compiled: the flagship, grouped report, regression, binned (B1 inside the graph) and 2-speaker audio "
            f"steps, {COMPILED_STEPS} steps eager and then with the compiled path (16 eager, then CUDA-graph replays)")
     _compiled_phase(smi, device)
+
+    _phase(f"fused step: compiled_step (update, in-program sync, compute as one CUDA graph) of the grouped report, "
+           f"binned (B1 inside), regression and flagship collections, {FUSED_STEPS} steps each eager, with per-program "
+           "replay and as one program")
+    _fused_phase(smi, device)
+
+    _phase(f"in-graph sync: compiled_step of the report collection over a one-rank NCCL group, {IN_GRAPH_STEPS} steps")
+    _in_graph_sync_phase(device)
 
     _phase(f"wrappers: BootStrapper(Accuracy(1000), {BOOT_COPIES}) at ImageNet-1k val size ({IMAGENET_VAL} x "
            f"{REPORT_CLASSES} in updates of {BOOT_STEP}), Poisson and multinomial; MetricTracker over "

@@ -39,9 +39,10 @@ What differs from the JAX package, and why:
   writes. Whatever sets the count outside a program (``reset``, ``merge``,
   a load, a sync) makes a new buffer or goes through the metric's state
   restore, and the next dispatch seeds the device offset from the host count.
-- ``fresh_copy`` (JAX buffer donation) and ``sync_cat_buffer_in_jit`` (the
-  in-``jit`` collective) have no counterpart. The host sync of a CatBuffer
-  state is in ``parallel/sync.py``.
+- ``fresh_copy`` (JAX buffer donation) has no counterpart. The host sync of
+  a CatBuffer state is in ``parallel/sync.py``; :func:`sync_cat_buffer_in_jit`
+  is the in-program one, which reads the gathered fill counts on the host,
+  so it runs eagerly and raises inside a captured program.
 
 Padding rows stay zero: the buffer is born zeroed, an append writes only its
 own rows, and ``merge`` copies into a zeroed tail, so :meth:`has_nonfinite`
@@ -54,7 +55,7 @@ import torch
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
-__all__ = ["CatBuffer"]
+__all__ = ["CatBuffer", "sync_cat_buffer_in_jit"]
 
 
 def _in_program() -> bool:
@@ -234,3 +235,36 @@ class CatBuffer:
     def __repr__(self) -> str:
         item = None if self.buffer is None else tuple(self.buffer.shape[1:])
         return f"CatBuffer(capacity={self.capacity}, count={self.count}, item_shape={item})"
+
+
+def sync_cat_buffer_in_jit(cb: CatBuffer, axis_name) -> CatBuffer:
+    """All-gather a CatBuffer over ``axis_name`` into one compacted buffer of
+    ``world * capacity`` rows, every rank's valid rows in rank order, the
+    tail zero; ``overflowed`` if any rank's was. Two collectives through the
+    in-program seam (``parallel/sync.py::_program_collective``): the
+    ``[capacity, ...]`` buffers and one ``[count, overflow]`` pair per rank.
+    The merged count is a host int, so the counts are read on the host: a
+    captured program cannot hold that read, and this raises inside one."""
+    from metrics_tpu_torch.core.compiled import program_context
+    from metrics_tpu_torch.parallel import sync as sync_mod
+
+    if cb.buffer is None:
+        raise MetricsTPUUserError("Cannot sync an empty CatBuffer (no item shape yet).")
+    if program_context():
+        raise MetricsTPUUserError(
+            "sync_cat_buffer_in_jit reads the gathered row counts on the host, which a captured "
+            "program cannot hold: sync a CatBuffer state outside the program (sync()/pure_sync)."
+        )
+    device = cb.buffer.device
+    bufs = sync_mod._program_collective(cb.buffer, "cat", axis_name)  # [W * capacity, ...]
+    meta = torch.tensor([[cb.count, int(cb.overflowed)]], dtype=torch.int64, device=device)
+    meta = sync_mod._program_collective(meta, "cat", axis_name).cpu()  # [W, 2]
+    world = meta.shape[0]
+    item = tuple(cb.buffer.shape[1:])
+    out = torch.zeros((world * cb.capacity,) + item, dtype=cb.buffer.dtype, device=device)
+    rows = bufs.reshape((world, cb.capacity) + item)
+    count = 0
+    for r, n in enumerate(meta[:, 0].tolist()):
+        out[count:count + n].copy_(rows[r, :n])
+        count += n
+    return CatBuffer(world * cb.capacity, out, count, bool((meta[:, 1] > 0).any()))

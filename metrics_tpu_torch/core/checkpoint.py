@@ -281,6 +281,16 @@ def _refuse_snapshot(m: Metric, reason: str) -> None:
 
 
 def _metric_record(m: Metric, writer: _PayloadWriter) -> Dict[str, Any]:
+    if m.__dict__.get("_inflight") is not None or m.__dict__.get("_inflight_collection") is not None:
+        # refuse rather than drain: the live state holds only the delta since
+        # a non-blocking round took the accumulation, and draining here would
+        # put a collective stall into the checkpoint cadence
+        _refuse_snapshot(m, "in-flight non-blocking sync round")
+        raise MetricsTPUUserError(
+            f"save_checkpoint: {type(m).__name__} has a non-blocking sync round in flight — the live state "
+            "holds only the post-snapshot delta. Resolve the round (compute()/sync()) or cancel it "
+            "(unsync()) before snapshotting."
+        )
     if m._is_synced:
         _refuse_snapshot(m, "state is synced (snapshots serialize pre-sync state)")
         raise MetricsTPUUserError(
@@ -1100,12 +1110,35 @@ class MetricCheckpointer:
     def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> None:
         self.metric._auto_checkpointer = None
         if exc_type is None and self._pending and not _capturing():
+            if self._inflight_round():
+                rank_zero_warn(
+                    "checkpointer exiting with a non-blocking sync round in flight — the tail snapshot was "
+                    "skipped (the live state holds only the post-snapshot delta). Resolve or cancel the "
+                    "round, then call snapshot() for a final checkpoint.",
+                    RuntimeWarning,
+                )
+                return
             self.snapshot()  # flush the tail on a clean exit
 
+    def _inflight_round(self) -> bool:
+        """Does a non-blocking sync round hold the accumulation?"""
+        if isinstance(self.metric, MetricCollection):
+            if self.metric.__dict__.get("_inflight_round") is not None:
+                return True
+            metrics = list(self.metric.values())
+        else:
+            metrics = [self.metric]
+        return any(
+            m.__dict__.get("_inflight") is not None or m.__dict__.get("_inflight_collection") is not None
+            for m in metrics
+        )
+
     def after_update(self, metric: Union[Metric, MetricCollection]) -> None:
-        """Hook called by the stateful ``update``/``forward`` paths."""
+        """Hook called by the stateful ``update``/``forward`` paths. While a
+        non-blocking round holds the accumulation, a due snapshot waits: the
+        first update after the round resolves takes it."""
         self._pending += 1
-        if self._pending < self.every_n_updates or _capturing():
+        if self._pending < self.every_n_updates or _capturing() or self._inflight_round():
             return
         self.snapshot()
 

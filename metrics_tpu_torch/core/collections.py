@@ -30,11 +30,18 @@ update/forward/compute/reset/clone/state_dict, and its two performance seams:
   ``pure_forward`` and ``merge_states``, keyed by member, one update per
   compute group.
 
+- **The overlapped collection sync.** ``sync(blocking=False)`` (and
+  ``sync_mode="overlap"``) launches ONE round over the combined payload on
+  the background lane (``parallel/async_sync.py``); the next read resolves
+  it for every member, all or nothing.
+- **The whole step as one program**: ``compiled_step`` and the in-program
+  ``pure_sync`` (``core/plan.py``, ``parallel/sync.py::sync_in_jit``).
+
 ``telemetry()`` returns the collection's snapshot and every member's
 (``{"collection": ..., "members": {key: ...}}``); the planner journals
 ``group.form`` and ``group.detach``, a failed fused sync ``health.failure``.
-Overlapped sync is not ported yet. It is a ``torch.nn.ModuleDict``, as
-upstream TorchMetrics' is, so ``.to()`` moves every member.
+It is a ``torch.nn.ModuleDict``, as upstream TorchMetrics' is, so ``.to()``
+moves every member.
 """
 import os
 from contextlib import contextmanager
@@ -61,6 +68,7 @@ from metrics_tpu_torch.core.compiled import (
     tensor_signature,
 )
 from metrics_tpu_torch.core.metric import (
+    _SYNC_MODES,
     Metric,
     _check_on_error,
     _ComputeGroup,
@@ -75,8 +83,15 @@ from metrics_tpu_torch.observability.diagnostics import warn_once
 from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
 from metrics_tpu_torch.parallel import bucketing
 from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.parallel.async_sync import drain_round, launch_round, resolve_round, validate_staleness_policy
 from metrics_tpu_torch.parallel.health import FUSED_KEY_SEP, is_missing_rank_error
-from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError, StateDictMismatchError, SyncError
+from metrics_tpu_torch.utils.exceptions import (
+    MetricsTPUUserError,
+    StaleSyncError,
+    StateDictMismatchError,
+    SyncError,
+)
+from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 #: Env escape hatch: 0/false/off/no disables compute-group formation.
 COMPUTE_GROUPS_ENV = "METRICS_TPU_COMPUTE_GROUPS"
@@ -143,6 +158,11 @@ class MetricCollection(nn.ModuleDict):
         prefix / postfix: added to every key in the output dict.
         compute_groups: ``True`` groups schema- and update-identical members,
             a list of key lists pins the groups, ``False`` disables.
+        sync_mode: ``"overlap"`` makes ``compute()`` resolve one collection
+            round launched at the previous ``compute()`` and launch the next
+            (see :attr:`Metric.sync_mode`).
+        staleness_policy: what a stale collection round serves, one policy
+            for the whole round (see :attr:`Metric.staleness_policy`).
 
     Example:
         >>> import torch
@@ -161,10 +181,21 @@ class MetricCollection(nn.ModuleDict):
         prefix: Optional[str] = None,
         postfix: Optional[str] = None,
         compute_groups: Union[bool, Sequence[Sequence[str]]] = True,
+        sync_mode: str = "blocking",
+        staleness_policy: str = "snapshot",
     ) -> None:
         super().__init__()
         self.prefix = self._check_arg(prefix, "prefix")
         self.postfix = self._check_arg(postfix, "postfix")
+        if sync_mode not in _SYNC_MODES:
+            raise MetricsTPUUserError(f"`sync_mode` must be one of {_SYNC_MODES}, got {sync_mode!r}")
+        self.sync_mode = sync_mode
+        self.staleness_policy = validate_staleness_policy(staleness_policy)
+        self._inflight_round = None
+        self._inflight_owners: Optional[List[Tuple[str, Metric, List[Metric]]]] = None
+        self._inflight_counts: Optional[Dict[str, int]] = None
+        self._sync_epoch = 0
+        self._overlap_warned = False
         if not (
             isinstance(compute_groups, bool)
             or (
@@ -236,7 +267,7 @@ class MetricCollection(nn.ModuleDict):
         else:
             raise ValueError("Unknown input to MetricCollection.")
         # membership changed: plan the groups again at the next dispatch
-        self._groups_stale = True
+        plan_mod.plan_invalidate(self, "membership-changed", schema_changed=True)
 
     def _set_name(self, base: str) -> str:
         name = base if self.prefix is None else self.prefix + base
@@ -466,7 +497,7 @@ class MetricCollection(nn.ModuleDict):
                 nn.Module.__setattr__(m, k, _fresh_state_value(v))
         if journal.ACTIVE:
             journal.record("group.detach", label="MetricCollection", members=len(members), reason="dispatch-failure")
-        self._groups_stale = True
+        plan_mod.plan_invalidate(self, "group-dispatch-failure", groups_stale=True)
 
     # ---------------- forward / update / compute ----------------
 
@@ -610,7 +641,16 @@ class MetricCollection(nn.ModuleDict):
     def compute(self) -> Dict[str, Any]:
         """Every member's value. In a distributed run the collection syncs
         once, through the fused path, and the members compute from the
-        synced state; otherwise each member syncs itself."""
+        synced state; otherwise each member syncs itself. With a collection
+        round in flight, or ``sync_mode="overlap"``, the one sync resolves
+        (and launches) the collection's round."""
+        overlap_auto = self.sync_mode == "overlap"
+        if self.__dict__.get("_inflight_round") is not None or (overlap_auto and self._overlap_eligible(None)):
+            self.sync()
+            try:
+                return {self._set_name(k): self._compute_member(m) for k, m in super().items()}
+            finally:
+                self.unsync()
         if all(m._computed is not None for m in self.values()) or not self._fused_sync_eligible(None):
             # every value cached (no update since the last compute) needs no
             # sync, as each member's own compute() would not sync either
@@ -635,7 +675,12 @@ class MetricCollection(nn.ModuleDict):
 
     def reset(self) -> None:
         """Reset every member; the groups are planned again at the next
-        dispatch, so members that detached may rejoin."""
+        dispatch, so members that detached may rejoin. An in-flight
+        collection round is drained first, on every rank alike."""
+        round_, _owners, _counts = self._clear_inflight()
+        if round_ is not None:
+            drain_round(round_)
+            registry_of(self).domain("sync")["cancelled"] += 1
         groups = list(self._iter_group_objects())
         for g in groups:
             g.dispatching = True
@@ -646,7 +691,7 @@ class MetricCollection(nn.ModuleDict):
             for g in groups:
                 g.dispatching = False
                 self._relink_group(g)
-        self._groups_stale = True
+        plan_mod.plan_invalidate(self, "reset", groups_stale=True)
 
     def _apply(self, fn: Callable, *args: Any, **kwargs: Any) -> "MetricCollection":
         # a move or cast of the whole collection is not a stray mutation of
@@ -700,7 +745,7 @@ class MetricCollection(nn.ModuleDict):
                 )
         for k, m in super().items():
             m.load_state_dict(state_dict, prefix=f"{k}.")
-        self._groups_stale = True
+        plan_mod.plan_invalidate(self, "load-state-dict", schema_changed=True)
 
     def checkpointer(
         self,
@@ -758,24 +803,48 @@ class MetricCollection(nn.ModuleDict):
         return self._map_members_deduped(lambda k, m: m.merge_states(a[k], b[k]))
 
     def pure_sync(self, state: Dict[str, Any], axis_name: Optional[Any] = None, fused: bool = False) -> Dict[str, Any]:
-        """In-graph sync of the members' states: not ported yet."""
-        raise NotImplementedError(
-            "MetricCollection.pure_sync (the in-graph sync over a process-group axis) is not "
-            "ported yet: ROADMAP item 9.3. Sync the stateful collection with sync()/compute()."
-        )
+        """In-program sync of the members' states over ``axis_name`` (see
+        :meth:`Metric.pure_sync`). With no axis each member syncs over its
+        own ``process_group`` and members without one keep their local
+        state; raises when no member has one. One sync per compute group."""
+        if axis_name is None and all(m.process_group is None for m in super().values()):
+            raise MetricsTPUUserError(
+                "pure_sync needs a mesh axis or process group: pass `axis_name=` or construct at least one "
+                "member with `process_group=<group>`."
+            )
+
+        def sync_one(k: str, m: Metric) -> Any:
+            if axis_name is not None:
+                return m.pure_sync(state[k], axis_name, fused=fused)
+            if m.process_group is not None:
+                return m.pure_sync(state[k], fused=fused)
+            return state[k]
+
+        return self._map_members_deduped(sync_one)
 
     def pure_forward(
         self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any
     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """One functional step for the whole collection: ``(new_state,
-        batch values)``."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                "MetricCollection.pure_forward(axis_name=...) syncs inside the program: not "
-                "ported yet, ROADMAP item 9.3."
-            )
+        """One functional step for the whole collection: ``(new_state, batch
+        values)``. The batch values sync over ``axis_name``, or with none
+        each member's over its own ``process_group`` (members without one
+        stay local), as each member's own ``pure_forward`` would."""
         batch = self.pure_update(self.init_state(), *args, **kwargs)
-        return self.merge_states(state, batch), self.pure_compute(batch)
+        if axis_name is not None or any(m.process_group is not None for m in super().values()):
+            value_state = self.pure_sync(batch, axis_name)
+        else:
+            value_state = batch
+        return self.merge_states(state, batch), self.pure_compute(value_state)
+
+    def compiled_step(
+        self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The whole collection step as one program: every member's update
+        (one per compute group), one fused in-program sync over
+        ``axis_name`` when given, every member's compute. Returns
+        ``(new_state, values)``; thread ``new_state`` back in. See
+        :meth:`Metric.compiled_step` and ``core/plan.py::compiled_step``."""
+        return plan_mod.compiled_step(self, state, args, kwargs, axis_name=axis_name)
 
     # ---------------- compiled hot path ----------------
 
@@ -787,6 +856,9 @@ class MetricCollection(nn.ModuleDict):
         return disp
 
     def __getstate__(self) -> Dict[str, Any]:
+        # pickle and deepcopy: an in-flight round's future cannot be copied,
+        # so drain it first (the fold-back keeps every accumulation)
+        self._cancel_overlap()
         state = dict(self.__dict__)
         for key in ("_compiled", "_plan_binding"):
             state.pop(key, None)
@@ -1067,6 +1139,7 @@ class MetricCollection(nn.ModuleDict):
         on_error: Optional[str] = None,
         on_missing: Optional[str] = None,
         timeout: Optional[float] = None,
+        blocking: Optional[bool] = None,
     ) -> None:
         """Sync every member.
 
@@ -1077,31 +1150,63 @@ class MetricCollection(nn.ModuleDict):
         ``"warn"``, or ``on_missing="local"`` and a missing-rank failure),
         every member syncs on its own instead and applies its own policy;
         the outcome of the header is the same on every rank, so all ranks
-        fall back together. A member with a custom ``dist_sync_fn``, its own
-        process group, ``sync_fused=False`` or strict update counts, or
-        ``METRICS_TPU_FUSED_SYNC=0``, makes every member sync on its own.
-        That loop syncs every member, group siblings included, so its
-        collectives do not depend on the groups; if a member raises, those
-        already synced are restored first.
+        fall back together. A member with a custom ``dist_sync_fn``, another
+        process group than the first member's, ``sync_fused=False`` or
+        strict update counts, or ``METRICS_TPU_FUSED_SYNC=0``, makes every
+        member sync on its own. That loop syncs every member, group siblings
+        included, so its collectives do not depend on the groups; if a
+        member raises, those already synced are restored first.
+
+        ``blocking=False`` (the default under ``sync_mode="overlap"``)
+        launches ONE collection round over the combined payload instead
+        (``parallel/async_sync.py``): every member restarts on fresh delta
+        state, and the next ``sync()``/``compute()``/``state_dict()`` (a
+        member's too) resolves the round and applies it to every member, all
+        or nothing. A failed resolve degrades as a failed fused sync does:
+        all members under ``"raise"`` raise, with every local accumulation
+        restored first; otherwise the per-member blocking loop runs again.
+        A collection that cannot overlap (see the conditions above, or
+        state with no merge) warns once and syncs blocking.
         """
         if on_error is not None:
             _check_on_error(on_error)
         if on_missing is not None:
             _sync.check_on_missing(on_missing)
         self._ensure_groups()
+        overlap_auto = self.sync_mode == "overlap"
+        if blocking is None:
+            blocking = not overlap_auto
+        failed_resolve = False
+        if should_sync and self.__dict__.get("_inflight_round") is not None:
+            try:
+                self._resolve_overlap(on_error=on_error, timeout=timeout, relaunch=not blocking,
+                                      on_missing=on_missing)
+                return
+            except SyncError as err:
+                if not self._sync_failure_degrades(err, on_error, on_missing, "resolve"):
+                    raise  # every member's local accumulation was restored first
+                # some member degrades: every member holds its local state
+                # again, and the per-member blocking loop applies its policy
+                failed_resolve, blocking = True, True
+        if should_sync and not blocking and dist_sync_fn is None:
+            if self._overlap_eligible(distributed_available):
+                self._launch_overlap(timeout=timeout, serve_local=overlap_auto, on_missing=on_missing)
+                return
+            if not self.__dict__.get("_overlap_warned", False):
+                self._overlap_warned = True
+                rank_zero_warn(
+                    "MetricCollection cannot overlap its sync (a member has a custom dist_sync_fn or another "
+                    "process group, state with no merge or strict update counts, or the fused path is "
+                    "disabled): falling back to the blocking path.",
+                    UserWarning,
+                )
+            blocking = True
         if should_sync and dist_sync_fn is None and self._fused_sync_eligible(distributed_available):
             try:
                 self._sync_fused(timeout=timeout, on_missing=on_missing)
                 return
             except SyncError as err:
-                modes = [m.sync_on_error if on_error is None else on_error for m in self.values()]
-                degrades = not all(mode == "raise" for mode in modes) or self._missing_degrades(err, on_missing)
-                registry_of(self).count_error(err, degraded=degrades)
-                if journal.ACTIVE:
-                    journal.record(
-                        "health.failure", label="MetricCollection", error=type(err).__name__, phase="fused"
-                    )
-                if not degrades:
+                if not self._sync_failure_degrades(err, on_error, on_missing, "fused"):
                     raise  # nothing was synced: all-or-nothing holds
         synced: List[Metric] = []
         try:
@@ -1113,6 +1218,7 @@ class MetricCollection(nn.ModuleDict):
                     on_error=on_error,
                     on_missing=on_missing,
                     timeout=timeout,
+                    blocking=blocking,
                 )
                 if m._is_synced:
                     synced.append(m)
@@ -1120,11 +1226,29 @@ class MetricCollection(nn.ModuleDict):
             for m in synced:
                 m.unsync()
             raise
+        if failed_resolve and any(m._sync_degraded for m in self.values()):
+            # a rerun that recovered every member is no degradation
+            registry_of(self).domain("sync")["degraded"] += 1
+
+    def _sync_failure_degrades(self, err: SyncError, on_error: Optional[str], on_missing: Optional[str],
+                               phase: str) -> bool:
+        """Count a failed combined sync; does some member degrade it?"""
+        modes = [m.sync_on_error if on_error is None else on_error for m in self.values()]
+        degrades = not all(mode == "raise" for mode in modes) or self._missing_degrades(err, on_missing)
+        registry_of(self).count_error(err, degraded=degrades)
+        if journal.ACTIVE:
+            journal.record("health.failure", label="MetricCollection", error=type(err).__name__, phase=phase)
+        return degrades
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore every synced member's local state (members whose sync
-        degraded are skipped) and re-link the groups."""
+        degraded are skipped) and re-link the groups. A collection round
+        launched and not resolved is cancelled: drained on every rank, its
+        result discarded, every member's snapshot folded back."""
         if not should_unsync:
+            return
+        if self.__dict__.get("_inflight_round") is not None and not any(m._is_synced for m in self.values()):
+            self._cancel_overlap()
             return
         for m in self.values():
             if m._is_synced:
@@ -1141,6 +1265,7 @@ class MetricCollection(nn.ModuleDict):
         on_error: Optional[str] = None,
         on_missing: Optional[str] = None,
         timeout: Optional[float] = None,
+        blocking: Optional[bool] = None,
     ) -> Iterator["MetricCollection"]:
         """Sync on enter, restore the local states on exit."""
         self.sync(
@@ -1150,6 +1275,7 @@ class MetricCollection(nn.ModuleDict):
             on_error=on_error,
             on_missing=on_missing,
             timeout=timeout,
+            blocking=blocking,
         )
         try:
             yield self
@@ -1179,9 +1305,10 @@ class MetricCollection(nn.ModuleDict):
 
     def _fused_sync_eligible(self, distributed_available: Optional[Callable]) -> bool:
         """Can the collection sync through one combined plan? Every member on
-        the built-in transport over one process group, none synced already,
-        none strict about update counts (the combined header carries one
-        summed count), the fused knob on, and a distributed world."""
+        the built-in transport over one process group, none synced already
+        or covered by a round of its own, none strict about update counts
+        (the combined header carries one summed count), the fused knob on,
+        and a distributed world."""
         members = list(self.values())
         if not members or not bucketing.fused_sync_enabled():
             return False
@@ -1190,6 +1317,7 @@ class MetricCollection(nn.ModuleDict):
             m.dist_sync_fn is not None
             or m.process_group is not group
             or m._is_synced
+            or m.__dict__.get("_inflight") is not None
             or m.sync_fused is False
             or m.sync_strict_update_count
             for m in members
@@ -1199,12 +1327,15 @@ class MetricCollection(nn.ModuleDict):
             return False
         return all((distributed_available or m._distributed_available)() for m in members)
 
-    def _combined_payload(self, owners: List[Tuple[str, Metric, List[Metric]]]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
-        """The key-prefixed combined state and reductions of the owners."""
+    def _combined_payload(
+        self, owners: List[Tuple[str, Metric, List[Metric]]], state_of: Callable[[Metric], Dict[str, Any]]
+    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """The key-prefixed combined state and reductions of the owners (one
+        definition for the blocking fused sync and the overlapped rounds)."""
         combined: Dict[str, Any] = {}
         reductions: Dict[str, Any] = {}
         for key, m, _peers in owners:
-            for name, value in m._state.items():
+            for name, value in state_of(m).items():
                 combined[f"{key}{FUSED_KEY_SEP}{name}"] = value
                 reductions[f"{key}{FUSED_KEY_SEP}{name}"] = m._reductions.get(name)
         return combined, reductions
@@ -1229,7 +1360,9 @@ class MetricCollection(nn.ModuleDict):
         why strict members take the per-member loop). Raises before any
         member changes."""
         owners = self._sync_state_owners()
-        combined, reductions = self._combined_payload(owners)
+        combined, reductions = self._combined_payload(owners, lambda m: m._state)
+        # the combined schema's plan build or hit counts for the collection
+        plan_mod.plan_for(combined, reductions, owner=self)
         members = list(self.values())
         synced = _sync.host_sync_state(
             combined,
@@ -1240,6 +1373,7 @@ class MetricCollection(nn.ModuleDict):
             metric_name=f"MetricCollection[{', '.join(self.keys())}]",
             fused=True,
             on_missing=self._effective_on_missing(on_missing),
+            stats=registry_of(self).domain("sync"),
         )
         for key, m, peers in owners:
             m._cache = m._state
@@ -1252,3 +1386,221 @@ class MetricCollection(nn.ModuleDict):
                 for name in m._defaults:
                     nn.Module.__setattr__(p, name, getattr(m, name))
                 p._is_synced = True
+
+    # ---------------- overlapped (non-blocking) collection sync ----------------
+
+    def _overlap_eligible(self, distributed_available: Optional[Callable]) -> bool:
+        """Can the collection launch one combined round? The fused-path
+        conditions, every member's state mergeable, no round in flight."""
+        if self.__dict__.get("_inflight_round") is not None:
+            return False
+        if not self._fused_sync_eligible(distributed_available):
+            return False
+        return all(m._overlap_refusal() is None for m in self.values())
+
+    def _launch_combined(
+        self,
+        owners: List[Tuple[str, Metric, List[Metric]]],
+        state_of: Callable[[Metric], Dict[str, Any]],
+        timeout: Optional[float],
+        on_missing: Optional[str] = None,
+    ) -> None:
+        """The one launch of a collection round: the combined payload of
+        ``state_of(owner)`` (the live state, or the unsync cache on a
+        pipeline relaunch), launched, and the in-flight bookkeeping."""
+        combined, reductions = self._combined_payload(owners, state_of)
+        counts = {key: m._update_count for key, m, _peers in owners}
+        plan_mod.plan_for(combined, reductions, owner=self)
+        plan_mod.next_sync_epoch(self)
+        round_ = launch_round(
+            combined,
+            reductions,
+            update_count=sum(counts.values()),
+            epoch=self._sync_epoch,
+            metric_name=f"MetricCollection[{', '.join(self.keys())}]",
+            group=next(iter(self.values())).process_group,
+            timeout=self._effective_member_timeout(timeout),
+            fused=True,
+            on_missing=self._effective_on_missing(on_missing),
+            stats=registry_of(self).domain("sync"),
+        )
+        self._inflight_round = round_
+        self._inflight_owners = owners
+        self._inflight_counts = counts
+        for m in self.values():
+            object.__setattr__(m, "_inflight_collection", self)
+        registry_of(self).domain("sync")["launched"] += 1
+
+    def _launch_overlap(
+        self, timeout: Optional[float] = None, serve_local: bool = False, on_missing: Optional[str] = None
+    ) -> None:
+        """Launch ONE round over the combined (one per group) member states
+        and restart every member on fresh delta state. ``serve_local`` (the
+        overlap pipeline's first read) serves each member its snapshot as
+        this read's value, the fresh delta state waiting in its unsync
+        cache."""
+        owners = self._sync_state_owners()
+        snapshots = {key: m._state for key, m, _peers in owners}  # the round takes these
+        by_owner = {id(m): snapshots[key] for key, m, _peers in owners}
+        self._launch_combined(owners, lambda m: by_owner[id(m)], timeout, on_missing=on_missing)
+        for _key, m, _peers in owners:
+            m._restore(m.init_state())
+        self._relink_groups()
+        if serve_local:
+            for key, m, peers in owners:
+                fresh = m._state
+                for x in [m] + peers:
+                    x._cache = dict(fresh)
+                    x._sync_degraded = False
+                    x._restore(snapshots[key])
+                    x._is_synced = True
+            registry_of(self).domain("sync")["served_local"] += 1
+
+    def _clear_inflight(self):
+        round_ = self.__dict__.get("_inflight_round")
+        owners = self.__dict__.get("_inflight_owners")
+        counts = self.__dict__.get("_inflight_counts")
+        self._inflight_round = None
+        self._inflight_owners = None
+        self._inflight_counts = None
+        for m in self.values():
+            object.__setattr__(m, "_inflight_collection", None)
+        return round_, owners, counts
+
+    def _inflight_members(self, owners) -> List[Tuple[str, Metric, List[Metric]]]:
+        """The launch-time owners, split for members that left their group
+        while the round flew: such a member keeps its own delta and
+        resolves against the same snapshot slice."""
+        out: List[Tuple[str, Metric, List[Metric]]] = []
+        for key, m, peers in owners:
+            grouped = [p for p in peers if p._compute_group is not None and p._compute_group is m._compute_group]
+            out.append((key, m, grouped))
+            out.extend((key, p, []) for p in peers if p not in grouped)
+        return out
+
+    def _snapshot_slice(self, combined: Dict[str, Any], key: str, x: Metric) -> Dict[str, Any]:
+        return {name: combined[f"{key}{FUSED_KEY_SEP}{name}"] for name in x._defaults}
+
+    def _fold_back_overlap(self, combined_snapshot, owners, counts) -> None:
+        """Restore every member's full local accumulation (its snapshot
+        slice merged with its delta): the first step of every failure path
+        of a collection round."""
+        for key, x, _grouped in self._inflight_members(owners):
+            snapshot = self._snapshot_slice(combined_snapshot, key, x)
+            x._restore(x.merge_states(snapshot, x._state) if x._update_count > counts[key] else snapshot)
+            x._cache = None
+            g = x._compute_group
+            if g is not None:
+                self._relink_group(g, x)
+
+    def _resolve_overlap(
+        self,
+        on_error: Optional[str] = None,
+        timeout: Optional[float] = None,
+        relaunch: bool = False,
+        on_missing: Optional[str] = None,
+    ) -> None:
+        """Consume the collection's round and apply it to every member, all
+        or nothing: every member's view and local accumulation are computed
+        first, then committed. A failure (the round's typed error, or a
+        stale member under ``"fresh"``) restores every member's full local
+        accumulation and raises; :meth:`sync` runs the degradation.
+        ``relaunch`` pipelines the next round from the restored
+        accumulations."""
+        round_, owners, counts = self._clear_inflight()
+        stats = registry_of(self).domain("sync")
+        try:
+            synced, wait_s = resolve_round(round_, timeout=timeout)
+        except SyncError:
+            self._fold_back_overlap(round_.snapshot, owners, counts)
+            raise
+        stats["resolved"] += 1
+        stats["gather_s"] += round_.gather_s
+        stats["resolve_wait_s"] += wait_s
+        stats["overlap_saved_s"] += max(0.0, round_.gather_s - wait_s)
+        policy = self.staleness_policy
+        members = self._inflight_members(owners)
+        any_stale = any(x._update_count > counts[key] for key, x, _g in members)
+        if journal.ACTIVE:
+            journal.record(
+                "sync.resolve", label="MetricCollection", sync_epoch=round_.epoch, stale=any_stale, policy=policy,
+                verdict=("stale:" + policy) if any_stale else "fresh", wait_s=wait_s, gather_s=round_.gather_s,
+                gather_start=round_.gather_started,
+            )
+        if any_stale:
+            stats["stale_resolves"] += 1
+            if policy == "fresh":
+                self._fold_back_overlap(round_.snapshot, owners, counts)
+                raise StaleSyncError(
+                    f"overlapped sync round {round_.epoch} of this MetricCollection resolved stale: update() "
+                    "ran after the snapshot was taken (staleness_policy='fresh'). Resolve before updating, or "
+                    "accept bounded staleness with staleness_policy='snapshot'|'merge'."
+                )
+        plans = []
+        for key, x, grouped in members:
+            snapshot = self._snapshot_slice(round_.snapshot, key, x)
+            gathered = self._snapshot_slice(synced, key, x)
+            if x._update_count > counts[key]:
+                delta = x._state
+                local = x.merge_states(snapshot, delta)
+                view = x.merge_states(gathered, delta) if policy == "merge" else gathered
+            else:
+                local, view = snapshot, gathered
+            plans.append((x, grouped, view, local))
+        for x, grouped, view, local in plans:
+            x._cache = local
+            x._sync_degraded = False
+            x._restore(view)
+            x._is_synced = True
+            for p in grouped:
+                p._cache = dict(local)
+                p._sync_degraded = False
+                for name in x._defaults:
+                    nn.Module.__setattr__(p, name, getattr(x, name))
+                p._is_synced = True
+        if relaunch:
+            self._relaunch_from_caches(timeout, on_missing=on_missing)
+
+    def _relaunch_from_caches(self, timeout: Optional[float], on_missing: Optional[str] = None) -> None:
+        """The pipeline: every member's restored accumulation (its unsync
+        cache) goes to the next round; the caches get fresh delta state."""
+        owners = self._sync_state_owners()
+        self._launch_combined(owners, lambda m: m._cache or m._state, timeout, on_missing=on_missing)
+        for _key, m, peers in owners:
+            fresh = m.init_state()
+            m._cache = fresh
+            for p in peers:
+                p._cache = dict(fresh)
+
+    def _resolve_member_request(
+        self,
+        member: Metric,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
+    ) -> None:
+        """One member's read (``compute()``, ``sync()``, ``state_dict()``)
+        while a collection round covers its state: the whole round resolves
+        and every member is left synced (restore them together with
+        :meth:`unsync`)."""
+        self.sync(on_error=on_error, on_missing=on_missing, timeout=timeout, blocking=True)
+
+    def _cancel_overlap(self) -> None:
+        """The symmetric cancel of a collection round (``unsync()``,
+        ``reset()``, a copy): drain it on every rank, discard its result or
+        its error, and fold every member's snapshot slice back."""
+        round_, owners, counts = self._clear_inflight()
+        if round_ is None:
+            return
+        drain_round(round_)
+        registry_of(self).domain("sync")["cancelled"] += 1
+        if any(m._is_synced for m in self.values()):
+            # mid-pipeline: the drained round holds the accumulations, the
+            # members serve the previous resolve; their delta caches are
+            # empty (updates are refused while synced)
+            for key, m, peers in owners:
+                snap = self._snapshot_slice(round_.snapshot, key, m)
+                for x in [m] + peers:
+                    x._cache = dict(snap)
+            return
+        self._fold_back_overlap(round_.snapshot, owners, counts)

@@ -64,6 +64,7 @@ __all__ = [
     "compiled_warmup",
     "consult_static",
     "in_program",
+    "program_context",
     "probe_traceable",
     "rebuild_call",
     "split_call",
@@ -128,6 +129,26 @@ def program_mode() -> Iterator[None]:
         yield
     finally:
         _MODE.depth -= 1
+
+
+@contextmanager
+def _building() -> Iterator[None]:
+    _MODE.building = getattr(_MODE, "building", 0) + 1
+    try:
+        yield
+    finally:
+        _MODE.building -= 1
+
+
+def program_context() -> bool:
+    """True while a program is built, captured, probed or run on this thread
+    (a build's eager warm-up included), while the current CUDA stream
+    captures a graph, or under ``torch.compile``: the counterpart of the JAX
+    package's ``_tracing_active``. Host bookkeeping that must count once per
+    host call (plan lookups, telemetry) stays silent then."""
+    if in_program() or getattr(_MODE, "building", 0) > 0 or torch.compiler.is_compiling():
+        return True
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 # ---------------------------------------------------------------------------
@@ -454,7 +475,7 @@ class Program:
         before anything is captured or written, the card's libraries
         initialise outside the capture, and a new state that would not fit
         its slot makes this call an :data:`EAGER_STEP`."""
-        with torch.no_grad():
+        with torch.no_grad(), _building():
             new_states, _ = fn(_clone_leaf(slots), list(dynamic))
         if not all(_fits(slot, new_states if key is None else new_states[key]) for slot, key in pairs):
             return EAGER_STEP

@@ -12,8 +12,11 @@ screening, and the compute-group protocol ``MetricCollection`` plans with
 (``state_fingerprint``, ``update_identity``, copy-on-write detach); the
 telemetry surface (``telemetry``, ``sync_stats``, ``compile_stats``, the
 health counters and the journal events of a failed sync and a detach); the
-pure state API (``init_state``, ``pure_update``, ``pure_compute``,
-``pure_forward``) and the compiled hot path (``core/compiled.py``), which
+overlapped sync (``sync(blocking=False)``, ``sync_mode="overlap"``,
+``staleness_policy``; ``parallel/async_sync.py``); the pure state API
+(``init_state``, ``pure_update``, ``pure_compute``, ``pure_sync``,
+``pure_forward``), the whole-step program ``compiled_step``
+(``core/plan.py``) and the compiled hot path (``core/compiled.py``), which
 replays ``update``/``forward`` as a CUDA graph after a warm-up.
 
 ``Metric`` is a ``torch.nn.Module``, as upstream TorchMetrics' is: tensor
@@ -63,11 +66,20 @@ from metrics_tpu_torch.core.compiled import (
 from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
 from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.parallel.bucketing import fused_sync_enabled
+from metrics_tpu_torch.parallel.async_sync import (
+    AsyncSyncRound,
+    drain_round,
+    launch_round,
+    resolve_round,
+    validate_staleness_policy,
+)
 from metrics_tpu_torch.parallel.health import NONFINITE_STATE, is_missing_rank_error, state_poisoned
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
     NonFiniteStateError,
+    StaleSyncError,
     StateDictMismatchError,
     StateSchemaError,
     SyncError,
@@ -75,6 +87,11 @@ from metrics_tpu_torch.utils.exceptions import (
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _MERGEABLE_FX = ("sum", "cat", "max", "min")
+
+#: Accepted ``sync_mode`` values: ``"blocking"`` gathers inline at
+#: ``sync()``/``compute()``; ``"overlap"`` double-buffers, the gather riding a
+#: background lane while the step keeps updating (``parallel/async_sync.py``).
+_SYNC_MODES = ("blocking", "overlap")
 
 #: Accepted ``on_error`` / ``sync_on_error`` degradation modes.
 _ON_ERROR_MODES = ("raise", "local", "warn")
@@ -354,11 +371,24 @@ class Metric(nn.Module):
             collectives; ``None`` reads ``METRICS_TPU_SYNC_TIMEOUT_S``
             (default 600), ``0`` disables the watchdog.
         compiled_update: the compiled hot path (see the class attribute).
+        sync_mode: ``"blocking"`` (default) or ``"overlap"`` (see the class
+            attribute): ``compute()`` resolves a round launched one interval
+            earlier on a background lane and launches the next. Needs
+            mergeable state.
+        staleness_policy: ``"snapshot"`` (default), ``"merge"`` or
+            ``"fresh"``: what a resolved round serves when updates ran while
+            it was in flight (see the class attribute).
+
+    ``process_group`` is a ``torch.distributed`` group: the host sync runs
+    over it, and it is the default axis of :meth:`pure_sync` and
+    :meth:`pure_forward` (the JAX package's is a mesh-axis name, over which
+    its host sync raises).
 
     ``sync_strict_update_count`` (update-count skew raises instead of
-    warning) and ``sync_fused`` (``None`` follows ``METRICS_TPU_FUSED_SYNC``,
-    ``False`` forces the per-leaf payload path) are plain attributes, as in
-    the JAX package, so they can be set on any constructed metric.
+    warning), ``sync_fused`` (``None`` follows ``METRICS_TPU_FUSED_SYNC``,
+    ``False`` forces the per-leaf payload path), ``sync_mode`` and
+    ``staleness_policy`` are plain attributes, as in the JAX package, so they
+    can be set on any constructed metric.
     """
 
     is_differentiable: Optional[bool] = None
@@ -396,6 +426,30 @@ class Metric(nn.Module):
     #: bfloat16 sum); what an update wrote keeps its dtype.
     _weak_dtype_states: Tuple[str, ...] = ()
 
+    #: The default of ``sync()`` and of ``compute()``'s automatic sync:
+    #: ``"blocking"`` gathers inline; ``"overlap"`` pipelines, each
+    #: ``compute()`` resolving the round launched at the previous one and
+    #: launching the next (the first serves the local accumulation, counted
+    #: as ``served_local``).
+    sync_mode: str = "blocking"
+
+    #: What a resolved round serves when ``update()`` ran while it was in
+    #: flight: ``"snapshot"`` the world state at the snapshot cut (the same
+    #: on every rank), ``"merge"`` that plus this rank's later delta,
+    #: ``"fresh"`` raises :class:`StaleSyncError` (degradable by ``on_error``).
+    #: Stale resolves are counted under every policy.
+    staleness_policy: str = "snapshot"
+
+    #: The in-flight overlapped round (``parallel/async_sync.py``), or ``None``.
+    _inflight: Optional[AsyncSyncRound] = None
+
+    #: The ``MetricCollection`` whose overlapped round covers this metric's
+    #: state, or ``None``: this member's reads resolve that round.
+    _inflight_collection: Optional[Any] = None
+
+    #: The overlapped round counter the health word carries (``core/plan.py``).
+    _sync_epoch: int = 0
+
     def __init__(
         self,
         compute_on_step: bool = True,
@@ -408,10 +462,16 @@ class Metric(nn.Module):
         sync_on_missing: str = "raise",
         sync_timeout: Optional[float] = None,
         compiled_update: Optional[bool] = None,
+        sync_mode: str = "blocking",
+        staleness_policy: str = "snapshot",
     ) -> None:
         super().__init__()
         if compiled_update is not None:
             self.compiled_update = compiled_update
+        if sync_mode not in _SYNC_MODES:
+            raise MetricsTPUUserError(f"`sync_mode` must be one of {_SYNC_MODES}, got {sync_mode!r}")
+        self.sync_mode = sync_mode
+        self.staleness_policy = validate_staleness_policy(staleness_policy)
         self._device = resolve_device(device)
         self._defaults: Dict[str, Any] = {}
         self._reductions: Dict[str, Any] = {}
@@ -459,10 +519,13 @@ class Metric(nn.Module):
         return super().__getattr__(name)
 
     def __getstate__(self) -> Dict[str, Any]:
-        # copies and pickles start with no programs: they hold the original
-        # instance's buffers, and the compile counters describe it alone
+        # an in-flight round's future cannot be copied: drain it first (the
+        # fold-back keeps the accumulation); copies and pickles start with no
+        # programs: they hold the original instance's buffers, and the
+        # compile counters describe it alone
+        self._drain_rounds_for_copy()
         state = dict(self.__dict__)
-        for key in ("_compiled", "_plan_binding", "_donation_ready"):
+        for key in ("_compiled", "_plan_binding", "_donation_ready", "_inflight", "_inflight_collection"):
             state.pop(key, None)
         reg = state.get("_telemetry")
         if reg is not None:
@@ -749,6 +812,7 @@ class Metric(nn.Module):
         on_error: Optional[str] = None,
         on_missing: Optional[str] = None,
         timeout: Optional[float] = None,
+        blocking: Optional[bool] = None,
     ) -> None:
         """Replace the local state by its cross-process reduction, keeping the
         local state to restore at :meth:`unsync`.
@@ -757,7 +821,9 @@ class Metric(nn.Module):
         ``distributed_available()`` says so). ``dist_sync_fn`` (or the
         constructor's) replaces the built-in sync, which checks the health
         header on every rank before any payload moves
-        (``parallel/health.py``) and runs each collective under the watchdog.
+        (``parallel/health.py``) and runs each collective under the watchdog,
+        over ``process_group`` (the JAX package raises on a host sync over
+        its mesh-axis ``process_group``).
 
         ``on_error`` / ``on_missing`` / ``timeout`` default to the
         constructor's ``sync_on_error`` / ``sync_on_missing`` /
@@ -767,15 +833,44 @@ class Metric(nn.Module):
         :meth:`unsync` is a no-op. ``on_missing="local"`` degrades a
         missing-rank failure (a watchdog timeout, a divergent header) even
         under ``on_error="raise"``.
+
+        ``blocking=False`` (the default under ``sync_mode="overlap"``)
+        launches a non-blocking round instead (``parallel/async_sync.py``):
+        the accumulation moves into a snapshot the background lane gathers,
+        the metric restarts on fresh state and stays un-synced, and the
+        next ``compute()``/``sync()``/``state_dict()`` resolves the round.
+        A ``sync()`` while a round is in flight resolves it, whatever
+        ``blocking`` says, and under ``blocking=False`` launches the next.
         """
         if self._is_synced and should_sync:
             raise MetricsTPUUserError("The Metric has already been synced.")
         on_error = _check_on_error(self.sync_on_error if on_error is None else on_error)
         on_missing = _sync.check_on_missing(self.sync_on_missing if on_missing is None else on_missing)
+        overlap_default = self.sync_mode == "overlap"
+        if blocking is None:
+            blocking = not overlap_default
+        if should_sync:
+            # an in-flight round resolves whatever the distributed predicate
+            # says now: it was launched in a world, and consuming it issues
+            # no new collective
+            owner = self.__dict__.get("_inflight_collection")
+            if owner is not None:
+                owner._resolve_member_request(self, on_error=on_error, on_missing=on_missing, timeout=timeout)
+                return
+            if self.__dict__.get("_inflight") is not None:
+                self._resolve_overlap(on_error=on_error, on_missing=on_missing, timeout=timeout,
+                                      relaunch=not blocking, dist_sync_fn=dist_sync_fn)
+                return
         is_distributed = (
             distributed_available() if distributed_available is not None else self._distributed_available()
         )
         if not should_sync or not is_distributed:
+            return
+        if not blocking:
+            # from the overlap pipeline (sync_mode="overlap") the caller is
+            # about to read: serve the local accumulation this first time
+            self._launch_overlap(dist_sync_fn=dist_sync_fn, timeout=timeout, serve_local=overlap_default,
+                                 on_missing=on_missing)
             return
         self._cache = self._state
         self._sync_degraded = False
@@ -787,6 +882,15 @@ class Metric(nn.Module):
         self._restore(synced)
         self._is_synced = True
 
+    def _attribute_plan(self, state: Dict[str, Any]) -> None:
+        """Take this schema's plan build or hit into this metric's ``plan``
+        telemetry: the bucketed sync consults the store where no owner is in
+        scope (the background lane included). Skipped on the per-leaf path,
+        which reads no plan."""
+        fused = self.sync_fused
+        if fused_sync_enabled() if fused is None else fused:
+            plan_mod.plan_for(state, self._reductions, owner=self)
+
     def _run_dist_sync(
         self,
         state: Dict[str, Any],
@@ -795,10 +899,16 @@ class Metric(nn.Module):
         on_missing: str = "raise",
     ) -> Dict[str, Any]:
         """The sync transport: ``fn`` (or ``self.dist_sync_fn``) when set,
-        else the built-in health-checked host sync with this metric's knobs."""
+        else the built-in health-checked host sync with this metric's knobs.
+        A custom transport too runs after the rounds this process launched
+        (it has no epoch header to catch a mispairing)."""
         fn = fn or self.dist_sync_fn
         if fn is not None:
-            return fn(dict(state), self._reductions)
+            from metrics_tpu_torch.parallel.async_sync import sync_channel
+
+            with sync_channel():
+                return fn(dict(state), self._reductions)
+        self._attribute_plan(state)
         return _sync.host_sync_state(
             state,
             self._reductions,
@@ -809,6 +919,7 @@ class Metric(nn.Module):
             metric_name=type(self).__name__,
             fused=self.sync_fused,
             on_missing=on_missing,
+            stats=self._sync_stats_dict(),
         )
 
     def _handle_sync_failure(self, err: SyncError, on_error: str, on_missing: str = "raise") -> None:
@@ -862,15 +973,20 @@ class Metric(nn.Module):
     # telemetry (observability/registry.py)
     # ------------------------------------------------------------------
 
+    def _sync_stats_dict(self) -> Dict[str, Any]:
+        return registry_of(self).domain("sync")
+
     def sync_stats(self) -> Dict[str, Any]:
-        """The ``sync`` domain of :meth:`telemetry`: the overlapped-sync
-        ledger (rounds ``launched``/``resolved``/``cancelled``,
-        ``stale_resolves``, ``degraded``, ``served_local``, ``gather_s``,
-        ``resolve_wait_s``, ``overlap_saved_s``) and the tier byte counters.
-        Blocking syncs count no round, as in the JAX package, and this
-        package runs blocking syncs only, so these are 0 until overlapped
-        sync and tiering are ported; a blocking sync's failures count in the
-        ``health`` domain and its collectives are journaled."""
+        """The ``sync`` domain of :meth:`telemetry`: the overlapped rounds
+        ``launched``, ``resolved``, ``cancelled``, ``stale_resolves``,
+        ``degraded`` (a resolve that fell back to local state),
+        ``served_local`` (an overlap-mode read before any round resolved),
+        and the wall-clock ledger: ``gather_s`` (the background
+        collectives), ``resolve_wait_s`` (how long resolves blocked) and
+        ``overlap_saved_s`` (their difference: the collective time hidden
+        behind the step). Blocking syncs count no round, as in the JAX
+        package; the tier byte counters stay 0 until the tiered sync is
+        ported."""
         return dict(registry_of(self).domain("sync"))
 
     def compile_stats(self) -> Dict[str, Any]:
@@ -902,10 +1018,17 @@ class Metric(nn.Module):
 
     def unsync(self, should_unsync: bool = True) -> None:
         """Restore the local state saved by :meth:`sync`. After a sync that
-        degraded to local state, a no-op."""
+        degraded to local state, a no-op. With a round launched and not
+        resolved, the symmetric cancel: the round is drained on every rank
+        (never un-queued, which could strand a peer mid-collective), its
+        result discarded and the snapshot folded back into the live state,
+        so no data is lost."""
         if not should_unsync:
             return
         if not self._is_synced:
+            if self.__dict__.get("_inflight") is not None:
+                self._cancel_overlap()
+                return
             if self._sync_degraded:
                 self._sync_degraded = False
                 return
@@ -938,6 +1061,7 @@ class Metric(nn.Module):
         on_error: Optional[str] = None,
         on_missing: Optional[str] = None,
         timeout: Optional[float] = None,
+        blocking: Optional[bool] = None,
     ) -> "Metric._SyncContext":
         """Context manager: sync on enter, restore the local state on exit."""
         return Metric._SyncContext(
@@ -949,7 +1073,192 @@ class Metric(nn.Module):
             on_error=on_error,
             on_missing=on_missing,
             timeout=timeout,
+            blocking=blocking,
         )
+
+    # ------------------------------------------------------------------
+    # overlapped (non-blocking, double-buffered) sync
+    # ------------------------------------------------------------------
+
+    def _overlap_refusal(self) -> Optional[str]:
+        """Why this metric cannot overlap its sync (``None``: it can)."""
+        if not self._can_merge():
+            return (
+                "its state has no algebraic merge, so the post-snapshot delta could never be folded "
+                "back (override `merge_states` or use mergeable reductions; blocking sync only)"
+            )
+        if self.dist_sync_on_step:
+            return (
+                "dist_sync_on_step syncs the batch state inside every forward(), which cannot compose "
+                "with an in-flight accumulation round"
+            )
+        return None
+
+    def _launch_overlap(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        timeout: Optional[float] = None,
+        serve_local: bool = False,
+        on_missing: Optional[str] = None,
+    ) -> None:
+        """Snapshot the accumulation, launch its gather, return. The round
+        takes the state objects (a host gather never changes its input) and
+        the metric restarts on fresh defaults, the delta buffers updates go
+        to. ``serve_local`` (the overlap pipeline's first read) serves the
+        snapshot as this read's value: the state points at it, and the
+        fresh delta buffers wait in the unsync cache."""
+        reason = self._overlap_refusal()
+        if reason is not None:
+            raise MetricsTPUUserError(f"non-blocking sync of {type(self).__name__} refused: {reason}.")
+        self._group_detach_if_stray()
+        snapshot = self._state
+        self._restore(self.init_state())
+        self._launch_overlap_from(snapshot, dist_sync_fn, timeout, on_missing=on_missing)
+        if serve_local:
+            self._cache = self._state
+            self._sync_degraded = False
+            self._restore(self._inflight.snapshot)
+            self._is_synced = True
+            self._sync_stats_dict()["served_local"] += 1
+
+    def _launch_overlap_from(
+        self,
+        snapshot: Dict[str, Any],
+        dist_sync_fn: Optional[Callable],
+        timeout: Optional[float],
+        on_missing: Optional[str] = None,
+    ) -> None:
+        """Launch one round over ``snapshot`` (which the round now owns)."""
+        plan_mod.next_sync_epoch(self)
+        fn = dist_sync_fn or self.dist_sync_fn
+        sync_fn = None
+        if fn is not None:
+            reductions = self._reductions
+            sync_fn = lambda: fn(dict(snapshot), reductions)  # noqa: E731
+        else:
+            # the plan is warmed and attributed here: the lane has no owner
+            self._attribute_plan(snapshot)
+        round_ = launch_round(
+            snapshot,
+            self._reductions,
+            update_count=self._update_count,
+            epoch=self._sync_epoch,
+            metric_name=type(self).__name__,
+            group=self.process_group,
+            strict_update_count=self.sync_strict_update_count,
+            timeout=self.sync_timeout if timeout is None else timeout,
+            fused=self.sync_fused,
+            sync_fn=sync_fn,
+            on_missing=self.sync_on_missing if on_missing is None else on_missing,
+            stats=self._sync_stats_dict(),
+        )
+        object.__setattr__(self, "_inflight", round_)
+        self._sync_stats_dict()["launched"] += 1
+
+    def _fold_back_round(self, round_: AsyncSyncRound, stale: bool) -> None:
+        """Restore the full local accumulation, the round's snapshot merged
+        with the delta since the launch: every failure and cancel path runs
+        this first, so a round never loses data."""
+        self._restore(self.merge_states(round_.snapshot, self._state) if stale else round_.snapshot)
+        self._cache = None
+
+    def _resolve_overlap(
+        self,
+        on_error: Optional[str] = None,
+        on_missing: Optional[str] = None,
+        timeout: Optional[float] = None,
+        relaunch: bool = False,
+        dist_sync_fn: Optional[Callable] = None,
+    ) -> None:
+        """Consume the in-flight round: wait for its result (about 0 when
+        the gather finished behind the step), judge staleness against the
+        snapshot's update count, apply :attr:`staleness_policy`, and leave
+        the metric synced as a blocking :meth:`sync` would. A failure (the
+        round's typed error, or a stale resolve under ``"fresh"``) restores
+        the full local accumulation first, then runs the ``on_error``
+        ladder. ``relaunch`` (the overlap pipeline) hands the restored local
+        accumulation to the next round."""
+        on_error = _check_on_error(self.sync_on_error if on_error is None else on_error)
+        on_missing = self.sync_on_missing if on_missing is None else on_missing
+        round_ = self.__dict__["_inflight"]
+        object.__setattr__(self, "_inflight", None)
+        stats = self._sync_stats_dict()
+        stale = self._update_count > round_.update_count
+        try:
+            synced, wait_s = resolve_round(round_, timeout=self.sync_timeout if timeout is None else timeout)
+        except SyncError as err:
+            self._fold_back_round(round_, stale)
+            self._handle_sync_failure(err, on_error, on_missing)  # raises under "raise"
+            stats["degraded"] += 1
+            return
+        stats["resolved"] += 1
+        stats["gather_s"] += round_.gather_s
+        stats["resolve_wait_s"] += wait_s
+        stats["overlap_saved_s"] += max(0.0, round_.gather_s - wait_s)
+        policy = self.staleness_policy
+        if journal.ACTIVE:
+            journal.record(
+                "sync.resolve", label=type(self).__name__, step=self._update_count, sync_epoch=round_.epoch,
+                stale=stale, policy=policy, verdict=("stale:" + policy) if stale else "fresh", wait_s=wait_s,
+                gather_s=round_.gather_s, gather_start=round_.gather_started,
+            )
+        if stale:
+            stats["stale_resolves"] += 1
+            if policy == "fresh":
+                self._fold_back_round(round_, stale)
+                self._handle_sync_failure(
+                    StaleSyncError(
+                        f"overlapped sync round {round_.epoch} of {type(self).__name__} resolved stale: "
+                        f"{self._update_count - round_.update_count} update() call(s) ran after the snapshot "
+                        "was taken (staleness_policy='fresh'). Resolve before updating, or accept bounded "
+                        "staleness with staleness_policy='snapshot'|'merge'."
+                    ),
+                    on_error,
+                )
+                stats["degraded"] += 1
+                return
+            delta = self._state
+            local = self.merge_states(round_.snapshot, delta)
+            view = self.merge_states(synced, delta) if policy == "merge" else synced
+        else:
+            local, view = round_.snapshot, synced
+        self._cache = local
+        self._sync_degraded = False
+        self._restore(view)
+        self._is_synced = True
+        if relaunch:
+            # the pipeline: the full local accumulation goes to the next
+            # round, the unsync cache gets fresh delta buffers
+            next_snapshot, self._cache = self._cache, self.init_state()
+            self._launch_overlap_from(next_snapshot, dist_sync_fn, timeout, on_missing=on_missing)
+
+    def _cancel_overlap(self) -> None:
+        """The symmetric cancel (``unsync()``, ``reset()``, a copy): drain
+        the round on every rank, discard its result or its error, and fold
+        the snapshot back, so the state is what it would be without the
+        launch."""
+        round_ = self.__dict__.get("_inflight")
+        if round_ is None:
+            return
+        object.__setattr__(self, "_inflight", None)
+        drain_round(round_, timeout=self.sync_timeout)
+        self._sync_stats_dict()["cancelled"] += 1
+        if self._is_synced:
+            # mid-pipeline (a resolved round served, the next in flight):
+            # the drained round holds the local accumulation; updates are
+            # refused while synced, so the delta cache it replaces is empty
+            self._cache = round_.snapshot
+        else:
+            self._fold_back_round(round_, self._update_count > round_.update_count)
+
+    def _drain_rounds_for_copy(self) -> None:
+        """Before a copy or a pickle: drain the round that holds this
+        metric's accumulation, its own or its collection's (a copy taken
+        without the fold-back would hold only the delta)."""
+        owner = self.__dict__.get("_inflight_collection")
+        if owner is not None:
+            owner._cancel_overlap()
+        self._cancel_overlap()
 
     # ------------------------------------------------------------------
     # merge / reset / clone
@@ -1047,7 +1356,18 @@ class Metric(nn.Module):
         self._computed = None
 
     def reset(self) -> None:
-        """Reset every state to its default."""
+        """Reset every state to its default. A round that holds this
+        metric's accumulation (its own, or its collection's) is drained
+        first: its collectives were launched on every rank, and a later
+        resolve would bring the discarded accumulation back."""
+        owner = self.__dict__.get("_inflight_collection")
+        if owner is not None:
+            owner._cancel_overlap()
+        round_ = self.__dict__.get("_inflight")
+        if round_ is not None:
+            object.__setattr__(self, "_inflight", None)
+            drain_round(round_, timeout=self.sync_timeout)
+            self._sync_stats_dict()["cancelled"] += 1
         self._group_detach_if_stray()
         self._update_called = False
         self._update_count = 0
@@ -1174,22 +1494,54 @@ class Metric(nn.Module):
             object.__setattr__(self, "_pure_mode", pure)
 
     def pure_sync(self, state: Dict[str, Any], axis_name: Optional[Any] = None, fused: bool = False) -> Dict[str, Any]:
-        """In-graph cross-process sync of an explicit state: not ported yet."""
-        raise NotImplementedError(
-            "pure_sync (the in-graph sync over a process-group axis) is not ported yet: "
-            "ROADMAP item 9.3. Sync a stateful metric with sync()/compute()."
-        )
+        """Cross-process sync of an explicit state with in-program collectives
+        (``parallel/sync.py::sync_in_jit``), which a CUDA graph over an NCCL
+        group or ``torch.compile`` can hold and gloo runs on the CPU.
+
+        ``axis_name`` (default: the constructor's ``process_group``) is a
+        ``ProcessGroup``, a ``DeviceMesh``, ``(DeviceMesh, dim or dims)`` or
+        a list of ranks; syncing over one dim of a 2-D mesh leaves one
+        value per slice of the other. ``fused=True`` reduces each
+        ``(dtype, fx)`` bucket of reduce states in one collective (the same
+        values). No health header runs here: every rank must pass the same
+        schema.
+        """
+        if axis_name is None:
+            axis_name = self.process_group
+        if axis_name is None:
+            raise MetricsTPUUserError(
+                "pure_sync needs a mesh axis or process group: pass `axis_name=` or construct the metric "
+                "with `process_group=<group>`."
+            )
+        return _sync.sync_in_jit(state, self._reductions, axis_name, fused=fused)
 
     def pure_forward(self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any) -> Any:
         """One functional step: ``(new_state, batch_value)``, the batch value
-        from the batch alone, as :meth:`forward` returns it."""
-        if axis_name is not None:
-            raise NotImplementedError(
-                "pure_forward(axis_name=...) syncs inside the program: not ported yet, ROADMAP item 9.3."
-            )
+        from the batch alone, as :meth:`forward` returns it, synced over
+        ``axis_name`` (default: the constructor's ``process_group``) when
+        there is one."""
+        if axis_name is None:
+            axis_name = self.process_group
         batch_state = self.pure_update(self.init_state(), *args, **kwargs)
-        value = self.pure_compute(batch_state)
+        value_state = self.pure_sync(batch_state, axis_name) if axis_name is not None else batch_state
+        value = self.pure_compute(value_state)
         return self.merge_states(state, batch_state), value
+
+    def compiled_step(
+        self, state: Dict[str, Any], *args: Any, axis_name: Optional[Any] = None, **kwargs: Any
+    ) -> Tuple[Dict[str, Any], Any]:
+        """The whole step as one program: ``pure_update``, the in-program
+        fused sync over ``axis_name`` when given, ``pure_compute``.
+
+        Returns ``(new_state, value)``, the value over the accumulated (and
+        synced) state, what ``sync(); compute()`` would serve. On the card
+        one CUDA graph a step; thread ``new_state`` back in (it is the
+        program's own state buffers) and never reuse the state passed in.
+        Inside your own capture or ``torch.compile`` it runs inline. See
+        ``core/plan.py::compiled_step`` (``METRICS_TPU_UNIFIED_PLAN=0`` runs
+        the separate phases).
+        """
+        return plan_mod.compiled_step(self, state, args, kwargs, axis_name=axis_name)
 
     # ------------------------------------------------------------------
     # compiled hot path (core/compiled.py)
@@ -1534,7 +1886,14 @@ class Metric(nn.Module):
 
     def _save_to_state_dict(self, destination: Dict[str, Any], prefix: str, keep_vars: bool) -> None:
         # nn.Module.state_dict() calls this for every module of a tree, so a
-        # Metric nested in a model or a MetricCollection writes its states
+        # Metric nested in a model or a MetricCollection writes its states.
+        # An in-flight round resolves first (the "next read"): the snapshot is
+        # the synced view, as sync -> state_dict -> unsync gives
+        owner = self.__dict__.get("_inflight_collection")
+        if owner is not None:
+            owner._resolve_member_request(self)
+        if self.__dict__.get("_inflight") is not None and not self._is_synced:
+            self._resolve_overlap()
         for name in self._defaults:
             if not self._persistent[name]:
                 continue

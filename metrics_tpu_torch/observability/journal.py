@@ -49,11 +49,9 @@ __all__ = [
 
 #: Event-kind catalog: ``<class>.<what>``. The class (before the dot) is the
 #: unit of :func:`on_event`'s filter. Kinds this package does not emit yet
-#: are kept so that the catalog is the JAX package's: ``compiled.*`` and
-#: ``plan.*`` come with the compiled path and the execution plan,
-#: ``sync.launch``/``resolve``/``drain`` with overlapped sync, ``sync.hop``
+#: are kept so that the catalog is the JAX package's: ``sync.hop`` comes
 #: with tiering, ``health.channel_*``, ``resilience.*`` and ``controller.*``
-#: with quorum and probation (ROADMAP.md, section A, items 9 and 10).
+#: with quorum and probation (ROADMAP.md, section A, item 10).
 EVENT_KINDS: Dict[str, str] = {
     # ---- compiled hot path -----------------------------------------------
     "compiled.trace": "an XLA (re)trace of a compiled update/forward program",

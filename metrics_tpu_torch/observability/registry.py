@@ -5,22 +5,22 @@ counters, defaults and schema id (``metrics_tpu.telemetry.v1``), so that one
 log shipper reads the snapshots of both packages.
 
 - ``sync`` is what ``Metric.sync_stats()`` / ``MetricCollection.sync_stats()``
-  read. Its round counters are the JAX package's overlapped-sync ledger:
-  ``launched``, ``resolved``, ``stale_resolves``, ``cancelled``,
-  ``served_local``, ``gather_s``, ``resolve_wait_s`` and ``overlap_saved_s``
-  count non-blocking rounds, which this package does not run yet (ROADMAP.md
-  A10.1), so they stay 0, as the JAX package's do on its blocking path; so
-  does the collection's ``degraded`` (a degraded overlapped round). The
-  tier byte counters (``intra_tier_bytes``, ``inter_tier_bytes``,
-  ``inter_tier_bytes_saved``) stay 0 until tiering (A10.3).
+  read: the overlapped rounds' ledger (``parallel/async_sync.py`` through
+  ``core/metric.py`` and ``core/collections.py``): ``launched``,
+  ``resolved``, ``stale_resolves``, ``cancelled``, ``served_local``,
+  ``degraded`` (a resolve that fell back to local state), ``gather_s``,
+  ``resolve_wait_s`` and ``overlap_saved_s``. Blocking syncs count no round,
+  as in the JAX package. The tier byte counters (``intra_tier_bytes``,
+  ``inter_tier_bytes``, ``inter_tier_bytes_saved``) stay 0 until tiering
+  (ROADMAP.md A10.3).
 - ``compile`` is what ``compile_stats()`` reads (:func:`compile_stats_view`),
   counted by the compiled hot path (``core/compiled.py``); ``plan`` counts
-  the plan bindings' invalidations by reason (``core/plan.py``). Its
-  ``builds``, ``cache_hits`` and ``fused_steps`` stay 0 until the
-  ``ExecutionPlan`` store and ``compiled_step`` (ROADMAP A9.3).
+  the plan store's ``builds`` and ``cache_hits`` taken by this owner, its
+  ``invalidations`` by reason, and ``fused_steps`` (``compiled_step``
+  calls), all in ``core/plan.py``.
 - ``checkpoint`` counts ``saves``, ``loads``, ``pruned_steps``,
-  ``auto_snapshots`` and ``refused`` (a synced state refused; the refusal of
-  an in-flight round comes with A10.1), bumped by ``core/checkpoint.py``.
+  ``auto_snapshots`` and ``refused`` (a synced state, or one whose
+  accumulation an in-flight round holds), bumped by ``core/checkpoint.py``.
 - ``health`` counts typed sync failures by class and the degradations,
   bumped by the ``on_error`` ladders of ``Metric`` and ``MetricCollection``.
 - :data:`PROCESS` holds the process-wide facts: ``watchdog_fired`` and

@@ -16,8 +16,9 @@ Given a state dict, or the key-prefixed combined states of a whole
   each leaf's per-rank rows back out;
 - **callable-``fx`` leaves** keep the per-leaf path.
 
-The plan is cached on the exact schema string behind the header's CRC, so
-repeated syncs of one schema plan once. A flat buffer is packed on the
+The plan is cached in the one schema-keyed store of ``core/plan.py``
+(:func:`build_sync_plan` is a view over ``plan_for(...).sync_layout``), so
+repeated syncs of one schema plan once, whichever thread syncs. A flat buffer is packed on the
 state's device, crosses the collective on the process group's collective
 device (``sync._gather``: the card under NCCL, the host under gloo) and comes
 back to the state's device.
@@ -27,19 +28,16 @@ The caller must have verified the gathered health words first:
 restores the per-leaf path.
 """
 import os
-import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
-from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.parallel.health import (
     cat_family_names,
     cat_row_count,
     header_cat_lengths,
-    state_schema_parts,
 )
 from metrics_tpu_torch.parallel.sync import _sum_keep_dtype
 
@@ -97,41 +95,43 @@ class LeafSpec:
 
 
 class SyncPlan:
-    """Which leaves ride which collective, for one schema."""
+    """Which leaves ride which collective, for one schema (``schema_key``)."""
 
-    __slots__ = ("cat_leaves", "reduce_buckets", "cat_buckets", "fallback")
+    __slots__ = ("cat_leaves", "reduce_buckets", "cat_buckets", "fallback", "schema_key")
 
     def __init__(self, cat_leaves: List[LeafSpec], reduce_buckets: Dict[Tuple[str, Any], List[LeafSpec]],
-                 cat_buckets: Dict[str, List[LeafSpec]], fallback: List[LeafSpec]) -> None:
+                 cat_buckets: Dict[str, List[LeafSpec]], fallback: List[LeafSpec], schema_key: str = "") -> None:
         self.cat_leaves = cat_leaves
         self.reduce_buckets = reduce_buckets
         self.cat_buckets = cat_buckets
         self.fallback = fallback
+        self.schema_key = schema_key
 
     @property
     def n_buckets(self) -> int:
         return len(self.reduce_buckets) + len(self.cat_buckets)
 
 
-_CACHE_LOCK = threading.Lock()
-_PLANS: Dict[Tuple[str, Tuple[Any, ...]], SyncPlan] = {}
-_STATS = {"hits": 0, "misses": 0}
+# The layouts are cached in the one schema-keyed store of ``core/plan.py``
+# (one ExecutionPlan per schema); these two names stay as views over it.
 
 
 def clear_sync_plan_cache() -> None:
-    """Empty the plan cache and zero its counters."""
-    with _CACHE_LOCK:
-        _PLANS.clear()
-        _STATS.update(hits=0, misses=0)
+    """Empty the plan store and zero its counters (``core.plan.clear_plans``)."""
+    from metrics_tpu_torch.core.plan import clear_plans
+
+    clear_plans()
 
 
 def sync_plan_cache_info() -> Dict[str, int]:
-    """``{"size", "hits", "misses"}`` of the plan cache."""
-    with _CACHE_LOCK:
-        return {"size": len(_PLANS), **_STATS}
+    """``{"size", "hits", "misses"}`` of the plan store."""
+    from metrics_tpu_torch.core.plan import plan_cache_info
+
+    info = plan_cache_info()
+    return {"size": info["size"], "hits": info["hits"], "misses": info["misses"]}
 
 
-def _classify(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPlan:
+def _classify(state: Dict[str, Any], reductions: Dict[str, Any], schema_key: str = "") -> SyncPlan:
     cat_order = {n: j for j, n in enumerate(cat_family_names(state, reductions))}
     cat_leaves: List[LeafSpec] = []
     reduce_buckets: Dict[Tuple[str, Any], List[LeafSpec]] = {}
@@ -172,28 +172,18 @@ def _classify(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPlan:
                 # item spec unknown (an empty state): a passed health check
                 # excludes it (its count column is 0), so this is defensive
                 fallback.append(spec)
-    return SyncPlan(cat_leaves, reduce_buckets, cat_buckets, fallback)
+    return SyncPlan(cat_leaves, reduce_buckets, cat_buckets, fallback, schema_key)
 
 
 def build_sync_plan(state: Dict[str, Any], reductions: Dict[str, Any]) -> SyncPlan:
-    """The cached plan of this state's schema. The key is the full schema
-    string (so a CRC collision cannot alias two schemas) plus the identity of
-    any callable reduction. A new plan journals ``sync.plan``."""
-    callables = tuple(id(reductions[name]) for name in sorted(reductions) if callable(reductions[name]))
-    key = (state_schema_parts(state, reductions), callables)
-    with _CACHE_LOCK:
-        plan = _PLANS.get(key)
-        if plan is not None:
-            _STATS["hits"] += 1
-            return plan
-        _STATS["misses"] += 1
-    plan = _classify(state, reductions)
-    with _CACHE_LOCK:
-        cached = _PLANS.setdefault(key, plan)
-    if cached is plan and journal.ACTIVE:
-        # one event per plan the cache keeps, whichever thread built it first
-        journal.record("sync.plan", buckets=plan.n_buckets, cat_leaves=len(plan.cat_leaves))
-    return cached
+    """The cached layout of this state's schema: a view into the
+    :class:`~metrics_tpu_torch.core.plan.ExecutionPlan` store, keyed on the
+    exact schema string the health word hashes (callable reductions all tag
+    as ``"callable"``: their leaves keep the per-leaf path, which reads each
+    call's own reduction)."""
+    from metrics_tpu_torch.core.plan import plan_for
+
+    return plan_for(state, reductions).sync_layout
 
 
 def _local_flat_rows(value: Any) -> torch.Tensor:
@@ -292,5 +282,5 @@ def host_sync_state_bucketed(
 
     # unplannable leaves: the per-leaf path, prechecks done by the header
     for s in plan.fallback:
-        out[s.name] = sync.host_sync_leaf(state[s.name], s.fx, group, precheck=False, timeout=timeout)
+        out[s.name] = sync.host_sync_leaf(state[s.name], reductions.get(s.name), group, precheck=False, timeout=timeout)
     return out

@@ -16,7 +16,9 @@ single ``all_gather``::
 - ``overflow``: any CatBuffer's sticky overflow flag;
 - ``nonfinite``: the ``check_finite`` poison verdict (0 when screening is off);
 - ``n_states``: number of declared states (the poison flag included);
-- ``sync_epoch``: 0 for every blocking sync (overlapped rounds come later);
+- ``sync_epoch``: the overlapped round this gather belongs to, 0 for a
+  blocking sync (``parallel/async_sync.py`` sets it per round), so a rank
+  resolving a background round never pairs with a peer's foreground sync;
 - ``member_epoch`` is 0, ``live_count`` the world size, ``tier`` -1 and
   ``precision`` 0 until the resilience and tiering layers are ported; they
   are verified all the same, so a peer running those layers fails loudly;
@@ -282,9 +284,10 @@ def build_health_word(
     reductions: Dict[str, Any],
     update_count: int = 0,
     world: int = 1,
+    sync_epoch: int = 0,
 ) -> np.ndarray:
     """This rank's int32 health word ``[WORD_WIDTH]`` for one state dict.
-    ``world`` fills the ``live_count`` column."""
+    ``world`` fills the ``live_count`` column, ``sync_epoch`` the round's."""
     names, kinds = _state_kinds(state)
     overflow = int(any(kinds[n] == "catbuf" and state[n].overflowed for n in names))
     nonfinite = int(state_poisoned(state))
@@ -312,7 +315,7 @@ def build_health_word(
         overflow,
         nonfinite,
         len(names),
-        0,  # sync_epoch: every sync is blocking until the overlapped slice
+        int(sync_epoch),
         0,  # member_epoch: the full world until the resilience slice
         int(world),  # live_count
         -1,  # tier: no tier map until the tiering slice

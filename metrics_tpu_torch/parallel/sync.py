@@ -11,9 +11,22 @@ gather that every rank verifies (``parallel/health.py``), then the bucketed
 payload (``parallel/bucketing.py``), or the per-leaf path. Every collective
 goes through one seam, :func:`_all_gather`, under the sync watchdog, and
 crosses on :func:`_collective_device`: the card under NCCL, the host under
-gloo, whatever device the state lives on.
+gloo, whatever device the state lives on. A foreground sync first drains the
+overlapped rounds this process launched (``parallel/async_sync.py``), and a
+round's sync carries its epoch in the header.
 
-The JAX package's quorum, overlapped and tiered layers are not ported yet.
+**In-program collectives** (:func:`sync_in_jit`, :func:`sync_leaf_in_jit`)
+are the counterpart of the JAX package's ``psum``/``all_gather`` inside
+``shard_map``: ``torch.distributed``'s functional collectives, which a CUDA
+graph (over an NCCL group) or ``torch.compile`` can hold, and which gloo runs
+on the CPU. ``axis_name`` is what they take as a group: a ``ProcessGroup``,
+a 1-D ``DeviceMesh``, ``(DeviceMesh, dim)`` (a tuple of dims: the group that
+spans them) or a list of ranks. Each runs through one seam,
+:func:`_program_collective`, which waits on its result before it is read.
+No health header and no watchdog run there: they are host code, as the JAX
+package's in-``jit`` sync has neither.
+
+The JAX package's quorum and tiered layers are not ported yet.
 """
 from typing import Any, Callable, Dict, List, Optional, Union
 
@@ -47,6 +60,12 @@ def distributed_available(group: Optional[Any] = None) -> bool:
     return dist.is_available() and dist.is_initialized() and dist.get_world_size(group) > 1
 
 
+def jit_distributed_available() -> bool:
+    """More than one process in the default ``torch.distributed`` group (the
+    JAX package's ``jax.process_count() > 1``)."""
+    return distributed_available(None)
+
+
 def reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
     """Reduce a tensor: 'elementwise_mean' | 'sum' | 'none'."""
     if reduction == "elementwise_mean":
@@ -76,6 +95,160 @@ def class_reduce(
     if class_reduction in ("none", None):
         return fraction
     raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
+
+
+# ---------------------------------------------------------------------------
+# in-program collectives (a CUDA graph or torch.compile can hold them)
+# ---------------------------------------------------------------------------
+
+
+def _resolve_axis(axis: Any) -> Any:
+    """The functional collectives' group for ``axis``: a ``ProcessGroup``, a
+    1-D ``DeviceMesh``, ``(DeviceMesh, dim)``, ``(DeviceMesh, dims)`` (the
+    group spanning those dims) or a list of ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(axis, dist.ProcessGroup):
+        return axis
+    if isinstance(axis, DeviceMesh):
+        return axis if axis.ndim == 1 else axis._flatten()
+    if isinstance(axis, tuple) and len(axis) == 2 and isinstance(axis[0], DeviceMesh):
+        mesh, dims = axis
+        if isinstance(dims, (tuple, list)):
+            if len(dims) == 1:
+                return (mesh, dims[0])
+            names = tuple(mesh.mesh_dim_names[d] if isinstance(d, int) else d for d in dims)
+            return mesh[names]._flatten()
+        return axis
+    if isinstance(axis, list) and axis and all(isinstance(r, int) for r in axis):
+        return axis
+    raise MetricsTPUUserError(
+        "An in-program sync needs a process group as its axis: a torch.distributed ProcessGroup, a "
+        f"DeviceMesh, (DeviceMesh, dim or dims) or a list of ranks; got {axis!r}."
+    )
+
+
+def _axis_group(group: Any) -> Any:
+    """The ``ProcessGroup`` behind a resolved axis."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if isinstance(group, DeviceMesh):
+        return group.get_group()
+    if isinstance(group, tuple):
+        return group[0].get_group(group[1])
+    return None if isinstance(group, list) else group
+
+
+def _axis_size(group: Any) -> int:
+    return len(group) if isinstance(group, list) else dist.get_world_size(_axis_group(group))
+
+
+def check_capturable_axis(axis: Any) -> None:
+    """Raise :class:`MetricsTPUUserError` unless a CUDA graph can hold the
+    collectives over ``axis``: only NCCL's can be captured (gloo's run on the
+    host)."""
+    group = _axis_group(_resolve_axis(axis))
+    backend = dist.get_backend(group)
+    if backend != "nccl":
+        raise MetricsTPUUserError(
+            f"compiled_step(axis_name=...) on the card captures its collectives in a CUDA graph, which only "
+            f"an NCCL group allows; this group's backend is {backend!r}. Sync with sync()/compute() (the host "
+            "sync), or call the step inside your own program."
+        )
+
+
+def _program_collective(x: torch.Tensor, op: str, axis: Any) -> torch.Tensor:
+    """THE in-program collective over ``axis``: ``op`` is ``"sum"``,
+    ``"avg"`` (the sum over the group divided by its size, the JAX package's
+    ``pmean``: an integer tensor's mean is float32), ``"max"``, ``"min"`` or
+    ``"cat"`` (every rank's tensor concatenated along dim 0, the JAX
+    package's tiled ``all_gather``). Waits on the result before returning
+    it. Kept as its own seam, where the tests plug in a world of threads."""
+    import torch.distributed._functional_collectives as funcol
+
+    group = _resolve_axis(axis)
+    if op == "cat":
+        out = funcol.all_gather_tensor(x.contiguous(), 0, group)
+    else:
+        out = funcol.all_reduce(x, "sum" if op == "avg" else op, group)
+    out = out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else funcol.wait_tensor(out)
+    if op == "avg":
+        out = (out if out.is_floating_point() else out.to(torch.float32)) / _axis_size(group)
+    return out
+
+
+def sync_leaf_in_jit(value: torch.Tensor, fx: ReduceFx, axis_name: Any) -> torch.Tensor:
+    """Apply one state leaf's declared reduction over ``axis_name`` inside a
+    program: sum, mean, max and min reduce, ``"cat"``/``None`` gather along
+    dim 0 (a scalar as one row), a callable runs as ``fx(value, axis_name)``."""
+    if fx in ("sum", "max", "min"):
+        return _program_collective(value, fx, axis_name)
+    if fx == "mean":
+        return _program_collective(value, "avg", axis_name)
+    if fx == "cat" or fx is None:
+        return _program_collective(value.reshape(1) if value.ndim == 0 else value, "cat", axis_name)
+    if callable(fx):
+        return fx(value, axis_name)
+    raise ValueError(f"Unknown dist_reduce_fx {fx!r}")
+
+
+def sync_in_jit(
+    state: Dict[str, Any], reductions: Dict[str, ReduceFx], axis_name: Any, fused: bool = False
+) -> Dict[str, Any]:
+    """Sync a whole state dict over ``axis_name`` inside a program (or
+    eagerly: the collectives are the same).
+
+    A list state is concatenated locally first, so each state costs one
+    collective; a callable ``fx`` on it runs as ``fx(concat, axis_name)``.
+    A CatBuffer syncs through
+    :func:`~metrics_tpu_torch.core.cat_buffer.sync_cat_buffer_in_jit`.
+    ``fused=True`` concatenates the reduce leaves of each ``(dtype, fx)``
+    bucket of the schema's plan (``core/plan.py``, the layout the host sync
+    uses) into one collective, elementwise over the same group, so the values
+    equal the per-leaf collectives'. Every rank must pass the same schema,
+    empty lists included: no header checks it here.
+    """
+    from metrics_tpu_torch.core.cat_buffer import CatBuffer, sync_cat_buffer_in_jit
+
+    bucket_of: Dict[str, Any] = {}
+    if fused:
+        from metrics_tpu_torch.parallel.bucketing import build_sync_plan
+
+        for bkey, specs in build_sync_plan(state, reductions).reduce_buckets.items():
+            for spec in specs:
+                bucket_of[spec.name] = bkey
+    out: Dict[str, Any] = {}
+    buckets: Dict[Any, List[Any]] = {}
+    for name, value in state.items():
+        fx = reductions.get(name)
+        if isinstance(value, CatBuffer):
+            out[name] = sync_cat_buffer_in_jit(value, axis_name)
+        elif isinstance(value, (list, tuple)):
+            if len(value) == 0:
+                out[name] = value
+                continue
+            value = torch.cat([v.reshape(1) if v.ndim == 0 else v for v in value])
+            out[name] = [fx(value, axis_name) if callable(fx) else sync_leaf_in_jit(value, "cat", axis_name)]
+        elif name in bucket_of and fx in ("sum", "mean", "max", "min"):
+            buckets.setdefault(bucket_of[name], []).append((name, value))
+        else:
+            out[name] = sync_leaf_in_jit(value, fx, axis_name)
+    for (_dtype, fx), leaves in buckets.items():
+        if len(leaves) == 1:
+            name, value = leaves[0]
+            out[name] = sync_leaf_in_jit(value, fx, axis_name)
+            continue
+        reduced = sync_leaf_in_jit(torch.cat([v.reshape(-1) for _, v in leaves]), fx, axis_name)
+        offset = 0
+        for name, value in leaves:
+            out[name] = reduced[offset:offset + value.numel()].reshape(value.shape)
+            offset += value.numel()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the host path
+# ---------------------------------------------------------------------------
 
 
 def _world_size(group: Optional[Any] = None) -> int:
@@ -249,6 +422,8 @@ def host_sync_state(
     metric_name: str = "metric",
     fused: Optional[bool] = None,
     on_missing: str = "raise",
+    sync_epoch: int = 0,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Sync a whole metric-state dict across processes.
 
@@ -269,13 +444,19 @@ def host_sync_state(
     :func:`~metrics_tpu_torch.parallel.health.reset_channel_health`.
     ``on_missing`` is the caller's policy (``"raise"`` or ``"local"``); this
     function raises either way and ``Metric.sync`` degrades.
+
+    ``sync_epoch`` tags the header with the overlapped round this sync
+    belongs to (0: blocking); every rank verifies it equal. The sync first
+    drains the rounds this process launched (``async_sync.sync_channel``),
+    so a foreground gather never pairs with a peer's background one.
+    ``stats`` is the owner's ``sync`` telemetry domain (its tier byte
+    counters stay 0 until the tiered sync is ported).
     """
     check_on_missing(on_missing)
     if not distributed_available(group):
         return {name: host_sync_leaf(value, reductions.get(name), group) for name, value in state.items()}
     if journal.ACTIVE:
-        # epoch 0: a blocking sync (overlapped rounds are not ported yet)
-        journal.record("sync.gather", label=metric_name, sync_epoch=0, states=len(state), fused=fused)
+        journal.record("sync.gather", label=metric_name, sync_epoch=int(sync_epoch), states=len(state), fused=fused)
     if channel_is_suspect():
         raise SyncTimeoutError(
             f"host sync of {metric_name} refused: an earlier collective timed out, so "
@@ -284,19 +465,23 @@ def host_sync_state(
             "re-establish the process group and call "
             "metrics_tpu_torch.parallel.health.reset_channel_health()."
         )
-    precheck = True
-    if check_health:
-        from metrics_tpu_torch.parallel import bucketing
+    from metrics_tpu_torch.parallel.async_sync import sync_channel
 
-        word = torch.from_numpy(build_health_word(state, reductions, update_count, world=_world_size(group)))
-        words = torch.stack(_gather(word, group, timeout)).numpy()
-        verify_health_words(
-            words, state, reductions, strict_update_count=strict_update_count, metric_name=metric_name
-        )
-        if bucketing.fused_sync_enabled() if fused is None else fused:
-            return bucketing.host_sync_state_bucketed(state, reductions, words=words, group=group, timeout=timeout)
-        precheck = False
-    return {
-        name: host_sync_leaf(value, reductions.get(name), group, precheck=precheck, timeout=timeout)
-        for name, value in state.items()
-    }
+    with sync_channel():
+        precheck = True
+        if check_health:
+            from metrics_tpu_torch.parallel import bucketing
+
+            word = torch.from_numpy(build_health_word(
+                state, reductions, update_count, world=_world_size(group), sync_epoch=sync_epoch))
+            words = torch.stack(_gather(word, group, timeout)).numpy()
+            verify_health_words(
+                words, state, reductions, strict_update_count=strict_update_count, metric_name=metric_name
+            )
+            if bucketing.fused_sync_enabled() if fused is None else fused:
+                return bucketing.host_sync_state_bucketed(state, reductions, words=words, group=group, timeout=timeout)
+            precheck = False
+        return {
+            name: host_sync_leaf(value, reductions.get(name), group, precheck=precheck, timeout=timeout)
+            for name, value in state.items()
+        }

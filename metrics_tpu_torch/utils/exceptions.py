@@ -37,6 +37,17 @@ class StateDivergenceError(SyncError):
     """
 
 
+class StaleSyncError(SyncError):
+    """An overlapped (non-blocking) sync resolved against a moved-on state.
+
+    Raised under ``staleness_policy="fresh"`` when ``update()`` ran between
+    a round's launch and its resolve: the full local accumulation is
+    restored first; degrade with ``on_error="local"``, resolve earlier, or
+    accept bounded staleness with ``"snapshot"``/``"merge"``
+    (``parallel/async_sync.py``).
+    """
+
+
 class NonFiniteStateError(SyncError):
     """A rank's accumulated state was poisoned by NaN/Inf values.
 

@@ -136,3 +136,106 @@ def test_b1_inside_a_replay_is_counted_and_equal_to_its_twin():
         cpu.update(preds[i].cpu(), target[i].cpu())
     for name, v in m._state.items():
         assert torch.equal(v.cpu(), cpu._state[name]), name
+
+
+# ---- compiled_step: the whole step as one CUDA graph ------------------------
+
+
+def _report(device):
+    k = dict(num_classes=10, average="macro", device=device)
+    return port.MetricCollection({"prec": port.Precision(**k), "rec": port.Recall(**k), "f1": port.F1(**k),
+                                  "spec": port.Specificity(**k), "confmat": port.ConfusionMatrix(10, device=device)})
+
+
+def _phases(mc, preds, target):
+    state = mc.init_state()
+    for i in range(N_STEPS):
+        state = mc.pure_update(state, preds[i], target[i])
+    return state, mc.pure_compute(state)
+
+
+@pytest.mark.cuda
+def test_compiled_step_is_one_graph_equal_to_the_phases():
+    """One graph a step; the state threads through the program's own buffers
+    (no copy-in) and equals the separate phases bit for bit; B1 replays
+    inside the step's graph, counted one launch a call."""
+    device = _card()
+    preds, target, _ = _data(device)
+    mc = _report(device)
+    state = mc.init_state()
+    for i in range(N_STEPS):
+        state, values = mc.compiled_step(state, preds[i], target[i])
+    torch.cuda.synchronize()
+    want_state, want = _phases(_report(device), preds, target)
+    for k in want_state:
+        for name, v in want_state[k].items():
+            assert torch.equal(state[k][name], v), (k, name)
+    for k in want:
+        assert torch.equal(values[k], want[k]), k
+    cs = mc.compile_stats()["collection"]
+    assert cs["traces"] == 1 and cs["dispatches"] == N_STEPS and cs["fallback"] is None
+    binned = port.BinnedAveragePrecision(num_classes=10, thresholds=50, device=device)
+    launches = binned_stats.KERNEL_LAUNCHES
+    bstate = binned.init_state()
+    for i in range(N_STEPS):
+        bstate, bvalue = binned.compiled_step(bstate, preds[i], target[i])
+    torch.cuda.synchronize()
+    # one a step, and one in the program's eager warm-up
+    assert binned_stats.KERNEL_LAUNCHES - launches == N_STEPS + 1
+    cpu = port.BinnedAveragePrecision(num_classes=10, thresholds=50, device="cpu")
+    cstate = cpu.init_state()
+    for i in range(N_STEPS):
+        cstate = cpu.pure_update(cstate, preds[i].cpu(), target[i].cpu())
+    assert all(torch.equal(bstate[n].cpu(), v) for n, v in cstate.items())
+
+
+@pytest.mark.cuda
+def test_compiled_step_inside_a_callers_capture_runs_inline():
+    device = _card()
+    preds, target, _ = _data(device)
+    mc = _report(device)
+    state = mc.init_state()
+    state, _ = mc.compiled_step(state, preds[0], target[0])  # types every state
+    static = {k: {n: v.clone() for n, v in s.items()} for k, s in state.items()}
+    x, y = preds[1].clone(), target[1].clone()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out_state, out_values = mc.compiled_step(static, x, y)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert mc.telemetry()["collection"]["plan"]["fused_steps"] == 2  # the eager step, then once inline
+    ref = _report(device)
+    rs = ref.pure_update(ref.pure_update(ref.init_state(), preds[0], target[0]), preds[1], target[1])
+    want = ref.pure_compute(rs)
+    assert all(torch.equal(out_values[k], want[k]) for k in want)
+
+
+@pytest.mark.cuda
+def test_compiled_step_captures_a_one_rank_nccl_sync_and_refuses_gloo():
+    import socket
+
+    import torch.distributed as dist
+
+    device = _card()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port_no = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port_no}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        preds, target, _ = _data(device)
+        synced_mc, local_mc = _report(device), _report(device)
+        st_s, st_l = synced_mc.init_state(), local_mc.init_state()
+        for i in range(N_STEPS):
+            st_s, v_s = synced_mc.compiled_step(st_s, preds[i], target[i], axis_name=dist.group.WORLD)
+            st_l, v_l = local_mc.compiled_step(st_l, preds[i], target[i])
+        torch.cuda.synchronize()
+        assert all(torch.equal(v_s[k], v_l[k]) for k in v_l)  # one rank: the sum is the value
+        assert synced_mc.compile_stats()["collection"]["fallback"] is None
+        gloo = dist.new_group(backend="gloo")
+        m = port.Precision(num_classes=10, average="macro", device=device)
+        with pytest.raises(MetricsTPUUserError, match="NCCL"):
+            m.compiled_step(m.init_state(), preds[0], target[0], axis_name=gloo)
+    finally:
+        dist.destroy_process_group()

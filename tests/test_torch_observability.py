@@ -365,7 +365,8 @@ def test_disabled_recorder_never_calls_record(monkeypatch, tmp_path):
     journal.set_rank_provider(lambda: world._rank.value)
     journal.enable()
     _world_workload(world, tmp_path / "on")
-    assert {k.partition(".")[0] for k in calls} == {"group", "sync", "health", "degrade", "checkpoint"}
+    # plan.* comes from the plan store the syncs consult, as in the JAX package
+    assert {k.partition(".")[0] for k in calls} == {"group", "sync", "health", "degrade", "checkpoint", "plan"}
     assert len(calls) == len(journal.events())
 
 

@@ -289,15 +289,12 @@ NOT_YET = {
     "utils": {"compile_cache": "no twin: the XLA disk cache"},
     "models": {"inception_v3_apply": "no twin: the nn.Module is the form", "inception_v3_init": "no twin: ditto"},
     "parallel": {
-        **{n: "A9.3: in-graph collectives" for n in ("sync_in_jit", "sync_leaf_in_jit", "jit_distributed_available")},
-        **{n: "A10.1: overlapped sync" for n in (
-            "AsyncSyncRound", "STALENESS_POLICIES", "drain_round", "launch_round", "resolve_round")},
         **{n: "A10.2: quorum, probation, the adaptive controller" for n in (
             "AdaptiveController", "Membership", "adaptive_sync_timeout", "advance_membership", "channel_gate",
             "channel_probe_succeeded", "commit_schedule_decision", "configure_probation", "current_membership",
             "effective_world", "last_schedule_decisions", "live_count", "live_ranks", "maybe_rejoin",
             "membership_epoch", "negotiate_quorum", "reset_membership", "reset_resilience",
-            "set_quorum_transport", "sync_channel")},
+            "set_quorum_transport")},
     },
 }
 SUBPACKAGES = sorted(p.parent.name for p in (ROOT / "metrics_tpu").glob("*/__init__.py")
@@ -348,3 +345,75 @@ def test_distributed_initialize_with_retry_backs_off_on_transient_errors():
 
     with pytest.raises(SyncTimeoutError, match="after 3 attempts"):
         distributed_initialize_with_retry("h:1", 2, 0, max_retries=2, base_backoff_s=0.0, initialize_fn=refused)
+
+
+#: Items 9.3 and 10.1 (PR 12): the names each brings, at the JAX package's
+#: paths; ``TierSchedule``/``tier_schedule_for`` (``core.plan``) and the
+#: ``sync_precision`` argument stay queued with A10.3.
+LANDED = {
+    "core.plan": ("ExecutionPlan", "plan_for", "clear_plans", "plan_cache_info", "unified_plan_enabled",
+                  "next_sync_epoch", "fused_step_refusal", "compiled_step"),
+    "parallel": ("sync_in_jit", "sync_leaf_in_jit", "jit_distributed_available", "AsyncSyncRound",
+                 "STALENESS_POLICIES", "drain_round", "launch_round", "resolve_round", "sync_channel"),
+    "parallel.async_sync": ("SerialExecutor", "new_sync_stats", "validate_staleness_policy"),
+    "core.cat_buffer": ("sync_cat_buffer_in_jit",),
+    "utils.exceptions": ("StaleSyncError",),
+}
+QUEUED = {"core.plan": {"TierSchedule": "A10.3", "tier_schedule_for": "A10.3"}}
+
+
+def _reference_module_names(path):
+    """The top-level names ``metrics_tpu/<path>.py`` defines (read, not imported)."""
+    tree = ast.parse((ROOT / "metrics_tpu" / (path.replace(".", "/") + ".py")).read_text())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return names
+
+
+def _reference_init_args(path, cls):
+    tree = ast.parse((ROOT / "metrics_tpu" / path).read_text())
+    node = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == cls)
+    init = next(n for n in node.body if isinstance(n, ast.FunctionDef) and n.name == "__init__")
+    extra = [init.args.vararg.arg] if init.args.vararg else []
+    return {a.arg for a in init.args.args + init.args.kwonlyargs} - {"self"} | set(extra)
+
+
+@pytest.mark.parametrize("path", sorted(LANDED))
+def test_items_9_3_and_10_1_export_at_the_reference_paths(path):
+    import importlib
+
+    mod = importlib.import_module(f"metrics_tpu_torch.{path}")
+    if path == "parallel":
+        ref_names = set(_reference_exports("parallel"))
+    else:
+        ref_names = _reference_module_names(path)
+    for name in LANDED[path]:
+        assert name in ref_names, f"metrics_tpu.{path} has no {name}"
+        assert hasattr(mod, name), f"metrics_tpu_torch.{path} lacks {name}"
+    for name in QUEUED.get(path, {}):
+        assert name in ref_names and not hasattr(mod, name), f"{name} is ported now: take it out of QUEUED"
+
+
+def test_constructor_arguments_match_the_reference():
+    """``Metric`` and ``MetricCollection`` take the JAX package's arguments,
+    ``sync_mode`` and ``staleness_policy`` included; ``sync_precision`` waits
+    for A10.3 and ``device`` is the port's own."""
+    import inspect
+
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+    for cls, path in (("Metric", "core/metric.py"), ("MetricCollection", "core/collections.py")):
+        mine = set(inspect.signature(getattr(port, cls).__init__).parameters) - {"self", "args", "kwargs"}
+        theirs = _reference_init_args(path, cls) - {"args", "kwargs"}
+        assert theirs - mine == {"sync_precision"}, cls
+        assert mine - theirs == ({"device"} if cls == "Metric" else set()), cls
+    mc = port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_mode="overlap", staleness_policy="merge")
+    assert (mc.sync_mode, mc.staleness_policy) == ("overlap", "merge")
+    with pytest.raises(MetricsTPUUserError, match="sync_mode"):
+        port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_mode="lazy")
+    with pytest.raises(MetricsTPUUserError, match="staleness_policy"):
+        port.MetricCollection({"a": port.Accuracy(device="cpu")}, staleness_policy="stale")

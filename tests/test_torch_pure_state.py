@@ -181,13 +181,20 @@ def test_pure_forward_fused():
 
 
 def test_pure_sync_waits_for_item_9_3():
+    """Item 9.3 landed: with no axis (and no ``process_group``) ``pure_sync``
+    raises the JAX package's user error, and an axis that names no process
+    group (the JAX package's mesh-axis string) is refused as one; the syncs
+    themselves are held to the JAX package in ``test_torch_subgroup_sync.py``."""
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
     m = _PortSum()
     mc = port.MetricCollection({"s": m})
-    for call in (lambda: m.pure_sync(m.init_state()), lambda: m.pure_forward(m.init_state(), torch.tensor(1.0),
-                                                                               axis_name="dp"),
-                 lambda: mc.pure_sync(mc.init_state()), lambda: mc.pure_forward(mc.init_state(), torch.tensor(1.0),
-                                                                                axis_name="dp")):
-        with pytest.raises(NotImplementedError, match="9.3"):
+    for call in (lambda: m.pure_sync(m.init_state()), lambda: mc.pure_sync(mc.init_state())):
+        with pytest.raises(MetricsTPUUserError, match="mesh axis"):
+            call()
+    for call in (lambda: m.pure_forward(m.init_state(), torch.tensor(1.0), axis_name="dp"),
+                 lambda: mc.pure_forward(mc.init_state(), torch.tensor(1.0), axis_name="dp")):
+        with pytest.raises(MetricsTPUUserError, match="process group"):
             call()
 
 

@@ -4,7 +4,11 @@ One spawn of two processes serves every test in this file: each rank drives
 its own, uneven share of the batches, then reports what its synced
 ``compute()`` returned. The synced values must equal one process that saw all
 the batches. Ranks whose metrics disagree on their state schema raise the
-same ``StateDivergenceError`` on both ranks, from the health header.
+same ``StateDivergenceError`` on both ranks, from the health header. The
+in-program sync (``pure_sync``/``compiled_step`` on ``torch.distributed``'s
+functional collectives) runs over a ``new_group`` subgroup, the default
+group, a rank list and a ``DeviceMesh``, and an overlapped round over real
+gloo resolves as the blocking sync does.
 """
 import os
 import socket
@@ -159,6 +163,43 @@ def _worker(rank, world, port_no, out_dir):
                 result[case] = "no error"
             except Exception as err:  # noqa: BLE001 - the class is the result
                 result[case] = type(err).__name__
+
+        # the in-program sync on gloo's functional collectives: the report
+        # collection's pure state over a subgroup, the default group, a rank
+        # list and a 1-D DeviceMesh; a whole step over the subgroup
+        from torch.distributed.device_mesh import init_device_mesh
+
+        sub = dist.new_group([0, 1])
+        mesh = init_device_mesh("cpu", (world,))
+        report = _report()
+        state = report.init_state()
+        for p, t in _batches(rank):
+            state = report.pure_update(state, p, t)
+        result["funcol"] = {
+            name: report.pure_compute(report.pure_sync(state, axis_name=axis, fused=fused))
+            for name, axis, fused in (("subgroup", sub, True), ("world", dist.group.WORLD, False),
+                                      ("ranks", [0, 1], True), ("mesh", mesh, True), ("mesh_dim", (mesh, 0), True))
+        }
+        report = _report()
+        st = report.init_state()
+        for p, t in _batches(rank)[:2]:
+            st, values = report.compiled_step(st, p, t, axis_name=sub)
+        result["funcol_step"] = values
+
+        # an overlapped round over real gloo resolves as the blocking sync does
+        over, block = _flagship(), _flagship()
+        for p, t in _batches(rank):
+            over.update(p, t)
+            block.update(p, t)
+        over.sync(blocking=False)
+        over.sync()
+        block.sync()
+        result["overlap_equal"] = all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(block[k]._state[n]))
+            for k, m in over.items() for n, v in m._state.items() if not isinstance(v, list))
+        over.unsync()
+        block.unsync()
+        result["overlap_stats"] = over.sync_stats()["collection"]
         torch.save(result, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         dist.destroy_process_group()
@@ -262,3 +303,34 @@ def test_bertscore_and_rouge_cat_states_sync_to_one_process(two_rank_results):
         for key, v in want_rouge.items():
             assert torch.equal(result["rouge"][key], v), (rank, key)
         assert result["bertscore_local_rows"] == TEXT_SHARES[rank][1] - TEXT_SHARES[rank][0]
+
+
+def test_in_program_sync_on_gloo_funcol_over_groups(two_rank_results):
+    """``pure_sync`` on gloo's functional collectives, over a ``new_group``
+    subgroup, the default group, a rank list and a ``DeviceMesh``, fused or
+    not, serves what the host sync serves; so does ``compiled_step`` with
+    the subgroup as its axis (on the CPU its program runs the collectives
+    directly)."""
+    single = _report()
+    for rank in sorted(RANK_BATCHES):
+        for p, t in _batches(rank):
+            single.update(p, t)
+    want = single.compute()
+    step = _report()
+    for rank in sorted(RANK_BATCHES):
+        for p, t in _batches(rank)[:2]:
+            step.update(p, t)
+    want_step = step.compute()
+    for rank, result in enumerate(two_rank_results):
+        for name, got in result["funcol"].items():
+            assert torch.equal(got["confmat"], want["confmat"]), (rank, name)
+            for key in want:
+                torch.testing.assert_close(got[key], want[key], rtol=0, atol=1e-6)
+        for key in want_step:
+            torch.testing.assert_close(result["funcol_step"][key], want_step[key], rtol=0, atol=1e-6)
+
+
+def test_overlapped_round_on_gloo_equals_blocking(two_rank_results):
+    for result in two_rank_results:
+        assert result["overlap_equal"]
+        assert result["overlap_stats"]["launched"] == 1 and result["overlap_stats"]["resolved"] == 1
