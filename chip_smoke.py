@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --compiled-only   # build, then the compiled phase alone
+    python3 chip_smoke.py --resilience-only   # build, then the resilience phase alone
 
 Every phase prints its collections' ``compile_stats()``: after 16 eager
 steps the compiled hot path (``core/compiled.py``) replays a metric's
@@ -147,7 +148,23 @@ back.
    ``sync.gather`` a sync round, the guarded collectives' time, the schema
    divergence once in ``health`` and as ``health.failure`` on each rank,
    both journals as one Chrome trace;
-19. profiles a step of each collection (the report collection with and
+19. resilience and tiers: four gloo ranks share the card (one
+   ``torch.multiprocessing`` spawn, every state on ``cuda:0``, a c10d store
+   hosted by this process; ``--resilience-only`` runs the build and this
+   alone). The phase builds its own quorum and tier transport
+   (``_StoreTransport``: gloo groups, liveness from store heartbeats; the
+   package ships none). (a) tiers: at ``METRICS_TPU_TIER_SIZE=2`` the report
+   collection and a 2048-dim streaming FID sync flat, tiered at full
+   precision (equal to flat, ``torch.equal``), bf16 and int8 (bit-stable,
+   integer states untouched, the FID bucket within the bound derived from
+   the codec and this run's data); ms a sync, the tier byte counters, the
+   codec's device ms. (c) probation: a straggler past the others' watchdog;
+   they degrade, cool down, and the next sync readmits them as the probe
+   round. (b) quorum: rank 3 leaves with ``os._exit`` before a
+   ``sync_on_missing="quorum"`` sync; the survivors agree on epoch 1 and
+   live (0, 1, 2) with tiers {0, 1} and {2}, retry once, and equal one
+   process over their batches;
+20. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -163,6 +180,7 @@ import sys
 import tempfile
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -1738,6 +1756,441 @@ def _overlap_only_phase(device):
     mp.start_processes(_overlap_only_rank, args=(SYNC_WORLD, port_no, out_dir, str(device)), nprocs=SYNC_WORLD,
                        join=True, start_method="spawn")
     _check_overlap([torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(SYNC_WORLD)])
+
+
+# resilience phase: four gloo ranks share the card, tier size 2 (two tiers of
+# two, as one 8-card node is one tier at METRICS_TPU_TIER_SIZE=8)
+RESILIENCE_WORLD, RESILIENCE_TIER = 4, 2
+RESILIENCE_STEPS = STEPS // RESILIENCE_WORLD  # report batches a rank
+RESILIENCE_TIMEOUT_S = 5.0  # the quorum part's watchdog bound
+STRAGGLER_TIMEOUT_S, STRAGGLER_DELAY_S, PROBATION_COOLDOWN_S = 2.0, 3.0, 1.0
+RESILIENCE_DEADLINE_S = 300.0
+HEARTBEAT_S, PROBE_WAIT_S = 0.05, 0.3
+# a float32 add rounds by at most 2^-24 of its result: the flat sync adds 3
+# times, the tiered one 2 times in the tiers, once in the Kahan combine and
+# once in the decode's product; 8 such roundings of the sum of magnitudes
+RESILIENCE_SLACK = 8 * 2.0 ** -24
+
+
+def _cuda_sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class _StoreTransport:
+    """The quorum and tier transport of the resilience phase: a deployment's
+    side channel, built here from torch.distributed alone (the package ships
+    none). Tier and leader groups are gloo groups made up front on every
+    rank with ``new_group``; any other set (the survivors after a death) gets
+    a gloo group its members alone build over the c10d store
+    (``ProcessGroupGloo`` on a prefix of the store: ``new_group(ranks,
+    use_local_synchronization=True)`` of gloo did not return in torch 2.13,
+    every member waiting in it). A gather
+    copies the wire to the host (gloo) and returns the stacked rows there.
+    Liveness is a heartbeat counter per rank in the store: ``probe()`` reads
+    the counters twice, ``PROBE_WAIT_S`` apart, and a rank whose counter did
+    not move is gone."""
+
+    def __init__(self, rank, world, port_no, tier_size):
+        import threading
+
+        import torch.distributed as dist
+
+        self.rank, self.world, self._port = rank, world, port_no
+        self._store = dist.TCPStore("localhost", port_no, world, is_master=False)  # the heartbeats' client
+        self._lock = threading.Lock()
+        self._groups = {}
+        tiers = [tuple(range(t, min(t + tier_size, world))) for t in range(0, world, tier_size)]
+        for ranks in tiers + [tuple(t[0] for t in tiers)]:
+            self._groups[ranks] = dist.new_group(list(ranks))
+        threading.Thread(target=self._beat, name="chip-smoke-heartbeat", daemon=True).start()
+
+    def _beat(self):
+        while True:
+            with self._lock:
+                self._store.add(f"hb/{self.rank}", 1)
+            time.sleep(HEARTBEAT_S)
+
+    def _counts(self):
+        with self._lock:
+            return [self._store.add(f"hb/{r}", 0) for r in range(self.world)]
+
+    def probe(self):
+        first = self._counts()
+        time.sleep(PROBE_WAIT_S)
+        second = self._counts()
+        return tuple(r for r in range(self.world) if r == self.rank or second[r] > first[r])
+
+    def subset_allgather(self, x, ranks):
+        import torch.distributed as dist
+
+        from metrics_tpu_torch.utils.exceptions import SyncTimeoutError
+
+        ranks = tuple(sorted(int(r) for r in ranks))
+        host = torch.as_tensor(x).detach().cpu().contiguous()
+        if len(ranks) == 1:
+            return host.unsqueeze(0)
+        out = [torch.empty_like(host) for _ in ranks]
+        try:
+            group = self._groups.get(ranks)
+            if group is None:
+                from datetime import timedelta
+
+                store = dist.PrefixStore("subset/" + "_".join(map(str, ranks)) + "/",
+                                         dist.TCPStore("localhost", self._port, self.world, is_master=False))
+                group = self._groups[ranks] = dist.ProcessGroupGloo(store, ranks.index(self.rank), len(ranks),
+                                                                    timedelta(seconds=120))
+            if isinstance(group, dist.ProcessGroupGloo):
+                group.allgather([out], [host]).wait()
+            else:
+                dist.all_gather(out, host, group=group)
+        except RuntimeError as err:
+            raise SyncTimeoutError(f"subset gather over {ranks} failed: {err}") from err
+        return torch.stack(out)
+
+    def negotiate_allgather(self, vec, live):
+        return self.subset_allgather(torch.from_numpy(np.asarray(vec)), live).numpy()
+
+
+def _resilience_fid(rank, device):
+    """Rank ``rank``'s streaming FID (identity features) over its share of
+    the sync phase's feature batches."""
+    from metrics_tpu_torch import FID
+
+    real, fake = _fid_sync_data()
+    share = slice(rank * FID_SYNC_STEPS // RESILIENCE_WORLD, (rank + 1) * FID_SYNC_STEPS // RESILIENCE_WORLD)
+    fid = FID(lambda x: x, feature_dim=FID_SYNC_DIM, streaming=True, device=device)
+    for r, f in zip(real[share], fake[share]):
+        fid.update(r.to(device), real=True)
+        fid.update(f.to(device), real=False)
+    return fid
+
+
+def _report_share(rank, device, steps):
+    probs, labels = _report_data()
+    mc = _report_collection(device)
+    for i in steps:
+        mc.update(probs[i].to(device), labels[i].to(device))
+    return mc
+
+
+def _member_states(mc):
+    return {f"{k}.{n}": v for k, m in mc.items() for n, v in m._state.items()}
+
+
+def _float_buckets(rank, device):
+    """Rank ``rank``'s float32 payloads in (a) as the bucketed sync lays them
+    out: the streaming FID's one bucket, and the report collection's one
+    float state (``mcc.confmat``, float32 as in the JAX package)."""
+    from metrics_tpu_torch.parallel.bucketing import build_sync_plan
+
+    fid = _resilience_fid(rank, device)
+    (specs,) = build_sync_plan(fid._state, fid._reductions).reduce_buckets.values()
+    mc = _report_share(rank, device, range(rank * RESILIENCE_STEPS, (rank + 1) * RESILIENCE_STEPS))
+    return {"fid": torch.cat([fid._state[s.name].reshape(-1) for s in specs]),
+            "report": mc["mcc"].confmat.reshape(-1)}
+
+
+def _codec_bounds(flats):
+    """Per element of a float bucket (``flats``: every rank's, ``[world,
+    n]``), the bound each codec keeps a tiered sync within of the flat one,
+    from this run's data: the tier partials ``P_t`` (rank-order sums of the
+    tier's rows) give int8 ``sum_t half-step_t`` (``maxabs / 127 / 2`` of the
+    element's 256-block) and bf16 ``2^-8 sum_t |P_t|``, each plus
+    ``RESILIENCE_SLACK`` times the sum of the ranks' magnitudes."""
+    from metrics_tpu_torch.parallel import quantize
+    from metrics_tpu_torch.parallel.sync import _rank_order_total
+
+    n = flats.shape[1]
+    nb = -(-n // quantize.BLOCK)
+    half_steps, magnitudes = [], []
+    for t in range(0, RESILIENCE_WORLD, RESILIENCE_TIER):
+        partial = _rank_order_total(flats[t:t + RESILIENCE_TIER])
+        blocks = torch.nn.functional.pad(partial.abs(), (0, nb * quantize.BLOCK - n)).reshape(nb, -1)
+        half_steps.append((blocks.amax(dim=1) / 127 / 2).repeat_interleave(quantize.BLOCK)[:n])
+        magnitudes.append(partial.abs())
+    slack = RESILIENCE_SLACK * flats.abs().sum(dim=0)
+    return {"int8": torch.stack(half_steps).sum(dim=0) + slack,
+            "bf16": 2.0 ** -8 * torch.stack(magnitudes).sum(dim=0) + slack}
+
+
+def _codec_ms(flat):
+    """Device ms (CUDA events) of the int8 and bf16 encode and decode of one
+    rank's FID bucket."""
+    from metrics_tpu_torch.parallel import quantize
+
+    out = {}
+    for precision in ("int8", "bf16"):
+        wire = quantize.encode(flat, precision)
+        out[f"{precision} encode"] = _time_ms(lambda: quantize.encode(flat, precision), reps=5, inner=5)
+        out[f"{precision} decode"] = _time_ms(lambda: quantize.decode(wire, flat.numel(), flat.dtype, precision),
+                                              reps=5, inner=5)
+    return out
+
+
+def _resilience_rank(rank, world, port_no, out_dir, device):
+    """One rank of the resilience phase, a process of its own with its
+    states on ``device``: (a) tiers, (c) probation, then (b) quorum, in which
+    rank 3 leaves abruptly. Every rank ends with ``os._exit``: a survivor's
+    default group holds a dead peer, which its teardown would wait on."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.core.metric import Metric
+    from metrics_tpu_torch.observability.registry import process_snapshot
+    from metrics_tpu_torch.parallel import resilience, tiering
+    from metrics_tpu_torch.parallel import sync as sync_mod
+    from metrics_tpu_torch.parallel.health import build_health_word
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    store = dist.TCPStore("localhost", port_no, world, is_master=False)
+    dist.init_process_group("gloo", store=dist.PrefixStore("pg", store), world_size=world, rank=rank)
+    transport = _StoreTransport(rank, world, port_no, RESILIENCE_TIER)
+    resilience.set_quorum_transport(transport)
+    out = {"rank": rank}
+    steps = range(rank * RESILIENCE_STEPS, (rank + 1) * RESILIENCE_STEPS)
+
+    # (a) tiers: the report collection (integer states, unencoded) and the
+    # streaming FID (float sums and compensations) synced flat, tiered at
+    # full precision, bf16 and int8, each twice, in turns
+    mc = _report_share(rank, device, steps)
+    fid = _resilience_fid(rank, device)
+    runs, ms, stats = {}, {}, {}
+    for mode in ("flat", "full", "bf16", "int8", "int8", "bf16", "full", "flat"):
+        if mode == "flat":
+            os.environ.pop(tiering.TIER_SIZE_ENV, None)
+        else:
+            os.environ[tiering.TIER_SIZE_ENV] = str(RESILIENCE_TIER)
+        mc.sync_precision = fid.sync_precision = mode if mode in ("bf16", "int8") else None
+        before = (dict(mc.sync_stats()["collection"]), dict(fid.sync_stats()))
+        dist.barrier()
+        _cuda_sync(device)
+        t0 = time.perf_counter()
+        mc.sync()
+        fid.sync()
+        _cuda_sync(device)
+        ms.setdefault(mode, []).append((time.perf_counter() - t0) * 1e3)
+        synced = {**{f"report.{k}": v.clone() for k, v in _member_states(mc).items()},
+                  **{f"fid.{k}": v.clone() for k, v in fid._state.items()}}
+        if mode in runs:
+            assert all(torch.equal(v, runs[mode][k]) for k, v in synced.items()), f"rank {rank}: {mode} not bit-stable"
+        else:
+            runs[mode] = synced
+            after = (mc.sync_stats()["collection"], fid.sync_stats())
+            stats[mode] = {key: sum(a.get(key, 0) - b.get(key, 0) for a, b in zip(after, before))
+                           for key in ("intra_tier_bytes", "inter_tier_bytes", "inter_tier_bytes_saved")}
+        mc.unsync()
+        fid.unsync()
+    os.environ.pop(tiering.TIER_SIZE_ENV, None)
+    flat = runs["flat"]
+    for key, v in runs["full"].items():
+        assert torch.equal(v, flat[key]), f"rank {rank}: tiered full precision {key} differs from the flat sync"
+    for mode in ("bf16", "int8"):
+        for key, v in runs[mode].items():
+            if not v.is_floating_point():
+                assert torch.equal(v, flat[key]), f"rank {rank}: {mode} changed the integer state {key}"
+    from metrics_tpu_torch.parallel.bucketing import build_sync_plan
+
+    (specs,) = build_sync_plan(fid._state, fid._reductions).reduce_buckets.values()
+    layout = {"fid": [f"fid.{s.name}" for s in specs], "report": ["report.mcc.confmat"]}
+    synced = {m: {b: torch.cat([runs[m][k].reshape(-1) for k in keys]).cpu() for b, keys in layout.items()}
+              for m in ("flat", "bf16", "int8")}
+    out["tiers"] = {"ms": ms, "stats": stats, "flat_crc": zlib.crc32(synced["flat"]["fid"].numpy().tobytes())}
+    if rank == 0:
+        flats = [_float_buckets(r, device) for r in range(RESILIENCE_WORLD)]
+        out["tiers"].update(synced=synced, bounds={
+            b: {k: v.cpu() for k, v in _codec_bounds(torch.stack([f[b] for f in flats])).items()} for b in layout})
+        out["tiers"]["codec_ms"] = _codec_ms(flats[0]["fid"]) if device.type == "cuda" else {}
+        del flats
+    del mc, fid, runs, flat, synced
+
+    # (c) probation: rank 3 straggles into the payload gather past the
+    # others' watchdog (its own waits longer); they degrade, their channel
+    # cools down, and the next sync, admitted as the probe round, readmits it
+    class _Total(Metric):
+        def __init__(self):
+            super().__init__(device=device, sync_on_error="local",
+                             sync_timeout=STRAGGLER_TIMEOUT_S if rank != 3 else 10 * STRAGGLER_DELAY_S)
+            self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + x.sum()
+
+        def compute(self):
+            return self.total
+
+    resilience.configure_probation(base_cooldown_s=PROBATION_COOLDOWN_S)
+    plain = sync_mod._all_gather
+    armed = {"delay": rank == 3}
+
+    def straggling(x, group):
+        if armed["delay"] and x.dtype == torch.float32:  # the payload, after the header
+            armed["delay"] = False
+            time.sleep(STRAGGLER_DELAY_S)
+        return plain(x, group)
+
+    sync_mod._all_gather = straggling
+    m = _Total()
+    m.update(torch.tensor([float(rank + 1)], device=device))
+    before = process_snapshot()
+    dist.barrier()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m.sync()
+    first = {"degraded": m._sync_degraded, "suspect": resilience.channel_is_suspect(),
+             "value": float(m.total), "gate": resilience.channel_gate()}
+    m.unsync()
+    time.sleep(PROBATION_COOLDOWN_S + 0.5)
+    m.sync()
+    second = {"synced": m._is_synced, "value": float(m.total), "suspect": resilience.channel_is_suspect()}
+    m.unsync()
+    sync_mod._all_gather = plain
+    after = process_snapshot()
+    out["probation"] = {"first": first, "second": second, "counters": {
+        k: after[k] - before[k] for k in ("watchdog_fired", "channel_suspect_latched", "channel_readmits",
+                                          "channel_resets")}}
+
+    # (b) quorum: the report collection under on_missing="quorum"; rank 3
+    # leaves abruptly before the sync
+    os.environ["METRICS_TPU_SYNC_TIMEOUT_S"] = str(RESILIENCE_TIMEOUT_S)
+    os.environ[tiering.TIER_SIZE_ENV] = str(RESILIENCE_TIER)
+    mc = _report_share(rank, device, steps)
+    for member in mc.values():
+        member.sync_on_missing = "quorum"
+    dist.barrier()
+    if rank == 3:
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        os._exit(0)
+    headers, failures = [], []
+    plain_word, plain_negotiate = sync_mod.build_health_word, resilience.negotiate_quorum
+
+    def counted_word(*args, **kwargs):
+        headers.append(time.perf_counter())
+        return plain_word(*args, **kwargs)
+
+    def timed_negotiate(err, **kwargs):
+        failures.append((time.perf_counter(), type(err).__name__))  # the first attempt just failed
+        return plain_negotiate(err, **kwargs)
+
+    sync_mod.build_health_word, resilience.negotiate_quorum = counted_word, timed_negotiate
+    before = process_snapshot()
+    mc.sync()
+    _cuda_sync(device)
+    done = time.perf_counter()
+    sync_mod.build_health_word, resilience.negotiate_quorum = plain_word, plain_negotiate
+    after = process_snapshot()
+    topo = tiering.active_topology()
+    word = build_health_word({"x": torch.zeros(())}, {"x": "sum"})
+    ref = _report_share(rank, device, range(3 * RESILIENCE_STEPS))  # one process, the survivors' batches
+    want = _member_states(ref)
+    got = _member_states(mc)
+    out["quorum"] = {
+        "epoch": resilience.membership_epoch(), "live": resilience.live_ranks(),
+        "tiers": None if topo is None else dict(topo.tiers), "attempts": len(headers),
+        "failure_to_done_ms": (done - failures[0][0]) * 1e3 if failures else None,
+        "failure": failures[0][1] if failures else None,
+        "equal": sorted(k for k in want if torch.equal(got[k], want[k])), "states": sorted(want),
+        "header": [int(word[7]), int(word[8]), int(word[9])],
+        "counters": {k: after[k] - before[k] for k in ("quorum_shrinks", "membership_transitions", "watchdog_fired",
+                                                          "channel_suspect_latched")},
+    }
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def _resilience_phase(device):
+    """Four gloo ranks on the card (one ``torch.multiprocessing`` spawn, a
+    c10d store hosted here): tiers, probation and quorum; every check
+    fails the script."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    store = dist.TCPStore("localhost", 0, RESILIENCE_WORLD + 1, is_master=True, wait_for_workers=False)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_resilience_")
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_resilience_rank, args=(RESILIENCE_WORLD, store.port, out_dir, str(device)),
+                             nprocs=RESILIENCE_WORLD, join=False, start_method="spawn")
+    while not ctx.join(timeout=1.0):
+        if time.perf_counter() - t0 > RESILIENCE_DEADLINE_S:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the resilience ranks did not finish within {RESILIENCE_DEADLINE_S:g} s")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False) for r in range(RESILIENCE_WORLD)]
+
+    # (a) tiers
+    tiers = ranks[0]["tiers"]
+    errs = {}
+    for bucket, bounds in tiers["bounds"].items():
+        flat = tiers["synced"]["flat"][bucket]
+        for mode in ("bf16", "int8"):
+            err = (tiers["synced"][mode][bucket] - flat).abs()
+            assert bool((err <= bounds[mode]).all()), (
+                f"{mode}: {int((err > bounds[mode]).sum())} of {bucket}'s float elements past the codec's bound")
+            errs[f"{bucket} {mode}"] = (float(err.max()), float((err / bounds[mode].clamp_min(1e-30)).max()))
+    for r, result in enumerate(ranks):
+        assert result["tiers"]["flat_crc"] == tiers["flat_crc"], f"rank {r}'s flat FID sync differs from rank 0's"
+        st = result["tiers"]["stats"]
+        assert st["flat"] == {"intra_tier_bytes": 0, "inter_tier_bytes": 0, "inter_tier_bytes_saved": 0}, st
+        assert all(st[m]["intra_tier_bytes"] > 0 for m in ("full", "bf16", "int8")), st
+    leader = ranks[0]["tiers"]["stats"]
+    ratio = {m: leader[m]["inter_tier_bytes"] / leader["full"]["inter_tier_bytes"] for m in ("bf16", "int8")}
+    print(f"tiers (METRICS_TPU_TIER_SIZE={RESILIENCE_TIER}: tiers {{0, 1}} and {{2, 3}}, leaders 0 and 2): the "
+          f"report collection (integer states, unencoded) and a streaming FID of {FID_SYNC_DIM}-dim identity "
+          f"features ({tiers['synced']['flat']['fid'].numel()} float32 elements in its one bucket), each rank a "
+          "quarter of the batches; tiered full precision equal to the flat sync on every rank (torch.equal), bf16 "
+          "and int8 bit-stable run to run, integer states unchanged by either codec, the float buckets (the FID's, "
+          "the report's mcc.confmat) within the codec's bound on rank 0: max abs err / max err-to-bound "
+          + ", ".join(f"{m} {e[0]:.4g} / {e[1]:.4f}" for m, e in errs.items()))
+    for r, result in enumerate(ranks):
+        ms = result["tiers"]["ms"]
+        print(f"tiers rank {r}: ms a sync (report + FID, host clock, two runs in turns) "
+              + ", ".join(f"{m} {[round(x, 2) for x in v]}" for m, v in ms.items())
+              + "; bytes " + ", ".join(f"{m} {v}" for m, v in result["tiers"]["stats"].items() if m != "flat"))
+    print(f"tiers: leader 0's slow-hop bytes against full precision: bf16 {ratio['bf16']:.4f}x, int8 "
+          f"{ratio['int8']:.4f}x; device ms of rank 0's FID bucket (CUDA events): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tiers["codec_ms"].items()))
+
+    # (c) probation
+    for r, result in enumerate(ranks):
+        p = result["probation"]
+        if r == 3:  # the straggler: its sync completed with the others' abandoned gathers
+            assert p["first"]["degraded"] is False and not p["first"]["suspect"], p
+            assert p["counters"]["watchdog_fired"] == 0, p
+        else:
+            assert p["first"]["degraded"] and p["first"]["suspect"] and p["first"]["gate"] == "refuse", p
+            assert p["counters"] == {"watchdog_fired": 1, "channel_suspect_latched": 1, "channel_readmits": 1,
+                                     "channel_resets": 0}, p
+        assert p["second"]["synced"] and not p["second"]["suspect"] and p["second"]["value"] == 10.0, p
+    print(f"probation: rank 3 straggled {STRAGGLER_DELAY_S:g} s into the payload gather; the watchdog "
+          f"({STRAGGLER_TIMEOUT_S:g} s) fired on ranks 0-2, which degraded to local values "
+          f"{[ranks[r]['probation']['first']['value'] for r in range(3)]} with the channel in probation "
+          f"(gate 'refuse'); after the {PROBATION_COOLDOWN_S:g} s cooldown the next sync went through as the probe "
+          "round and readmitted the channel on each, no reset_channel_health(): counters "
+          f"{ranks[0]['probation']['counters']}; every rank then synced 10.0")
+
+    # (b) quorum
+    survivors = [ranks[r]["quorum"] for r in range(3)]
+    for r, q in enumerate(survivors):
+        assert (q["epoch"], tuple(q["live"])) == (1, (0, 1, 2)), (r, q["epoch"], q["live"])
+        assert q["tiers"] == {0: (0, 1), 1: (2,)}, (r, q["tiers"])
+        assert q["attempts"] == 2, (r, q["attempts"])  # the failed attempt, one retry
+        assert q["equal"] == q["states"], (r, sorted(set(q["states"]) - set(q["equal"])))
+        assert q["header"] == [1, 3, r // RESILIENCE_TIER], (r, q["header"])
+        assert q["counters"]["quorum_shrinks"] == 1 and q["counters"]["membership_transitions"] == 1, q["counters"]
+        assert q["failure_to_done_ms"] is not None, r
+    how = ["watchdog fired" if q["counters"]["watchdog_fired"] else "gloo reported the closed connection"
+           for q in survivors]
+    assert all(q["failure"] == "SyncTimeoutError" for q in survivors), [q["failure"] for q in survivors]
+    print(f"quorum: rank 3 left (os._exit) before the sync; each survivor's first attempt failed with "
+          f"SyncTimeoutError: {how} (METRICS_TPU_SYNC_TIMEOUT_S={RESILIENCE_TIMEOUT_S:g}); they agreed on epoch 1, live (0, 1, 2), tiers "
+          f"{{0: (0, 1), 1: (2,)}} in that epoch, retried once, and their synced states equal one process over the "
+          f"survivors' {3 * RESILIENCE_STEPS} batches (torch.equal, {len(survivors[0]['states'])} states); header "
+          f"member_epoch 1, live_count 3; quorum_shrinks 1; ms from the first failed gather to the finished sync "
+          f"{[round(q['failure_to_done_ms'], 1) for q in survivors]}")
+    print(f"resilience: {RESILIENCE_WORLD} processes spawned, ran and exited in {spawn_s:.1f} s")
 
 
 def _sync_journal_check(ranks):
@@ -3631,6 +4084,11 @@ def main() -> int:
         _phase("compiled: CUDA-graph replay against eager")
         _compiled_phase(smi, device)
         return 0
+    if "--resilience-only" in sys.argv[1:]:
+        # the resilience phase alone (no result lines)
+        _phase(f"resilience and tiers: {RESILIENCE_WORLD} gloo ranks on the card")
+        _resilience_phase(device)
+        return 0
     if "--fused-only" in sys.argv[1:]:
         # the fused-step, in-graph sync and overlap phases alone (no result lines)
         _phase("fused step: compiled_step against eager and per-program replay")
@@ -3929,6 +4387,11 @@ def main() -> int:
     _sync_phase(device, report_gpu, report_values, (reg_gpu, reg_values, reg_bounds),
                 retrieval_runs["capacity"]["values"])
     del retrieval_runs
+
+    _phase(f"resilience and tiers: {RESILIENCE_WORLD} gloo ranks on the card, tier size {RESILIENCE_TIER} (full, "
+           "bf16 and int8 slow hops against the flat sync), probation after a straggler's watchdog, quorum after a "
+           "rank leaves")
+    _resilience_phase(device)
 
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):

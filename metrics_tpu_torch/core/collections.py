@@ -85,6 +85,7 @@ from metrics_tpu_torch.parallel import bucketing
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.parallel.async_sync import drain_round, launch_round, resolve_round, validate_staleness_policy
 from metrics_tpu_torch.parallel.health import FUSED_KEY_SEP, is_missing_rank_error
+from metrics_tpu_torch.parallel.quantize import validate_sync_precision
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
     StaleSyncError,
@@ -163,6 +164,13 @@ class MetricCollection(nn.ModuleDict):
             (see :attr:`Metric.sync_mode`).
         staleness_policy: what a stale collection round serves, one policy
             for the whole round (see :attr:`Metric.staleness_policy`).
+        sync_precision: the slow-hop codec of the combined sync's tiered
+            schedule, one for the whole combined gather (see
+            ``Metric(sync_precision=)``).
+
+    A combined sync (fused or overlapped) runs under ``on_missing="quorum"``
+    only when every member asks for it (one transport serves them all), and
+    degrades a missing-rank failure when any member asks for ``"local"``.
 
     Example:
         >>> import torch
@@ -174,6 +182,9 @@ class MetricCollection(nn.ModuleDict):
         (0.6667, [2, 1, 5, 1, 3])
     """
 
+    #: The slow-hop codec of the combined sync (``None``: full precision).
+    sync_precision: Optional[str] = None
+
     def __init__(
         self,
         metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
@@ -183,6 +194,7 @@ class MetricCollection(nn.ModuleDict):
         compute_groups: Union[bool, Sequence[Sequence[str]]] = True,
         sync_mode: str = "blocking",
         staleness_policy: str = "snapshot",
+        sync_precision: Optional[str] = None,
     ) -> None:
         super().__init__()
         self.prefix = self._check_arg(prefix, "prefix")
@@ -191,6 +203,7 @@ class MetricCollection(nn.ModuleDict):
             raise MetricsTPUUserError(f"`sync_mode` must be one of {_SYNC_MODES}, got {sync_mode!r}")
         self.sync_mode = sync_mode
         self.staleness_policy = validate_staleness_policy(staleness_policy)
+        self.sync_precision = validate_sync_precision(sync_precision)
         self._inflight_round = None
         self._inflight_owners: Optional[List[Tuple[str, Metric, List[Metric]]]] = None
         self._inflight_counts: Optional[Dict[str, int]] = None
@@ -1171,7 +1184,8 @@ class MetricCollection(nn.ModuleDict):
         if on_error is not None:
             _check_on_error(on_error)
         if on_missing is not None:
-            _sync.check_on_missing(on_missing)
+            for m in self.values():
+                _sync.check_on_missing(on_missing, m.process_group)
         self._ensure_groups()
         overlap_auto = self.sync_mode == "overlap"
         if blocking is None:
@@ -1374,6 +1388,7 @@ class MetricCollection(nn.ModuleDict):
             fused=True,
             on_missing=self._effective_on_missing(on_missing),
             stats=registry_of(self).domain("sync"),
+            sync_precision=self.sync_precision,
         )
         for key, m, peers in owners:
             m._cache = m._state
@@ -1423,6 +1438,7 @@ class MetricCollection(nn.ModuleDict):
             fused=True,
             on_missing=self._effective_on_missing(on_missing),
             stats=registry_of(self).domain("sync"),
+            sync_precision=self.sync_precision,
         )
         self._inflight_round = round_
         self._inflight_owners = owners

@@ -7,7 +7,8 @@ plus accumulation), ``sync``/``unsync``/``sync_context``, ``merge_states``,
 ``reset``, ``clone``, ``state_dict``/``load_state_dict``, pickling,
 ``set_dtype`` with its per-update persistence, the operator overloads and
 :class:`CompositionalMetric`; the health-checked sync with its ``on_error`` /
-``on_missing`` degradation ladder and watchdog timeout, ``check_finite``
+``on_missing`` degradation ladder (quorum included) and watchdog timeout, the
+tiered sync's ``sync_precision``, ``check_finite``
 screening, and the compute-group protocol ``MetricCollection`` plans with
 (``state_fingerprint``, ``update_identity``, copy-on-write detach); the
 telemetry surface (``telemetry``, ``sync_stats``, ``compile_stats``, the
@@ -75,6 +76,7 @@ from metrics_tpu_torch.parallel.async_sync import (
     validate_staleness_policy,
 )
 from metrics_tpu_torch.parallel.health import NONFINITE_STATE, is_missing_rank_error, state_poisoned
+from metrics_tpu_torch.parallel.quantize import validate_sync_precision
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
@@ -365,7 +367,10 @@ class Metric(nn.Module):
             rank-zero warning; ``"warn"`` the same, warning on every rank.
         sync_on_missing: what a missing-rank failure (a watchdog timeout or a
             divergent header) does: ``"raise"`` leaves it to ``on_error``;
-            ``"local"`` degrades to local state even under
+            ``"quorum"`` negotiates the surviving ranks and syncs over them
+            (``parallel/resilience.py``; the default world only, so it
+            refuses a ``process_group``, and it needs an installed quorum
+            transport); ``"local"`` degrades to local state even under
             ``on_error="raise"``.
         sync_timeout: watchdog timeout in seconds of this metric's host
             collectives; ``None`` reads ``METRICS_TPU_SYNC_TIMEOUT_S``
@@ -378,6 +383,12 @@ class Metric(nn.Module):
         staleness_policy: ``"snapshot"`` (default), ``"merge"`` or
             ``"fresh"``: what a resolved round serves when updates ran while
             it was in flight (see the class attribute).
+        sync_precision: ``None``/``"full"`` (default), ``"bf16"`` or
+            ``"int8"``: the codec of the slow (inter-tier) hop of the tiered
+            sync (``parallel/tiering.py``, ``parallel/quantize.py``); flat
+            syncs and the intra-tier hops move full precision. It rides the
+            health word, so ranks that mix precisions raise
+            ``StateDivergenceError`` together.
 
     ``process_group`` is a ``torch.distributed`` group: the host sync runs
     over it, and it is the default axis of :meth:`pure_sync` and
@@ -450,6 +461,9 @@ class Metric(nn.Module):
     #: The overlapped round counter the health word carries (``core/plan.py``).
     _sync_epoch: int = 0
 
+    #: The slow hop's codec of the tiered sync (``None``: full precision).
+    sync_precision: Optional[str] = None
+
     def __init__(
         self,
         compute_on_step: bool = True,
@@ -464,6 +478,7 @@ class Metric(nn.Module):
         compiled_update: Optional[bool] = None,
         sync_mode: str = "blocking",
         staleness_policy: str = "snapshot",
+        sync_precision: Optional[str] = None,
     ) -> None:
         super().__init__()
         if compiled_update is not None:
@@ -481,7 +496,8 @@ class Metric(nn.Module):
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
         self.sync_on_error = _check_on_error(sync_on_error)
-        self.sync_on_missing = _sync.check_on_missing(sync_on_missing)
+        self.sync_on_missing = _sync.check_on_missing(sync_on_missing, process_group)
+        self.sync_precision = validate_sync_precision(sync_precision)
         self.sync_timeout = sync_timeout
         self._update_called = False
         self._update_count = 0
@@ -845,7 +861,8 @@ class Metric(nn.Module):
         if self._is_synced and should_sync:
             raise MetricsTPUUserError("The Metric has already been synced.")
         on_error = _check_on_error(self.sync_on_error if on_error is None else on_error)
-        on_missing = _sync.check_on_missing(self.sync_on_missing if on_missing is None else on_missing)
+        on_missing = _sync.check_on_missing(self.sync_on_missing if on_missing is None else on_missing,
+                                            self.process_group)
         overlap_default = self.sync_mode == "overlap"
         if blocking is None:
             blocking = not overlap_default
@@ -920,6 +937,7 @@ class Metric(nn.Module):
             fused=self.sync_fused,
             on_missing=on_missing,
             stats=self._sync_stats_dict(),
+            sync_precision=self.sync_precision,
         )
 
     def _handle_sync_failure(self, err: SyncError, on_error: str, on_missing: str = "raise") -> None:
@@ -985,8 +1003,9 @@ class Metric(nn.Module):
         collectives), ``resolve_wait_s`` (how long resolves blocked) and
         ``overlap_saved_s`` (their difference: the collective time hidden
         behind the step). Blocking syncs count no round, as in the JAX
-        package; the tier byte counters stay 0 until the tiered sync is
-        ported."""
+        package. A tiered sync adds its hops' bytes to
+        ``intra_tier_bytes``, ``inter_tier_bytes`` and
+        ``inter_tier_bytes_saved``."""
         return dict(registry_of(self).domain("sync"))
 
     def compile_stats(self) -> Dict[str, Any]:
@@ -1151,6 +1170,7 @@ class Metric(nn.Module):
             sync_fn=sync_fn,
             on_missing=self.sync_on_missing if on_missing is None else on_missing,
             stats=self._sync_stats_dict(),
+            sync_precision=self.sync_precision,
         )
         object.__setattr__(self, "_inflight", round_)
         self._sync_stats_dict()["launched"] += 1

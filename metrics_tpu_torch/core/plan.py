@@ -37,8 +37,10 @@ trace. ``METRICS_TPU_UNIFIED_PLAN=0`` keeps the store serving the sync
 layouts and makes :func:`compiled_step` run the separate phases
 (``pure_update``, ``pure_sync``, ``pure_compute``) with no program.
 
-``TierSchedule`` and ``tier_schedule_for`` come with the tiered sync
-(ROADMAP A10.3).
+- :class:`TierSchedule` and :func:`tier_schedule_for`: the tier dimension,
+  a schema's bucketed layout paired with the negotiated tier topology and
+  the subset transport its hops run over (``parallel/tiering.py``), cached
+  per ``(schema string, topology key)``.
 """
 import os
 import threading
@@ -51,6 +53,7 @@ from metrics_tpu_torch.observability.registry import registry_of
 __all__ = [
     "ExecutionPlan",
     "PlanBinding",
+    "TierSchedule",
     "UNIFIED_PLAN_ENV",
     "binding",
     "clear_plans",
@@ -63,6 +66,7 @@ __all__ = [
     "plan_cache_info",
     "plan_for",
     "plan_invalidate",
+    "tier_schedule_for",
     "unified_plan_enabled",
 ]
 
@@ -112,6 +116,7 @@ def clear_plans() -> None:
     (``parallel.bucketing.clear_sync_plan_cache`` is the alias)."""
     with _PLANS_LOCK:
         _PLANS.clear()
+        _TIER_SCHEDULES.clear()
         _plan_stats.update(hits=0, misses=0, invalidations=0)
 
 
@@ -162,6 +167,77 @@ def plan_for(state: Dict[str, Any], reductions: Dict[str, Any], owner: Any = Non
             _PLANS.pop(next(iter(_PLANS)))
         _PLANS[key] = plan
     return plan
+
+
+# ---------------------------------------------------------------------------
+# the tier dimension: the sync layout x the negotiated tier topology
+# ---------------------------------------------------------------------------
+
+
+class TierSchedule:
+    """One schema's two-level schedule over one tier topology: the layout
+    says what rides each collective, the
+    :class:`~metrics_tpu_torch.parallel.tiering.TierTopology` who takes part
+    in each hop, ``transport`` what the hops run over. The slow hop has
+    ``inter_participants`` (the tier leaders) where the flat gather has
+    ``flat_participants`` (every live rank), for ``hops_per_bucket`` = 3
+    hops where the flat path has one."""
+
+    __slots__ = ("topology", "transport", "schema_key")
+
+    def __init__(self, topology: Any, transport: Any, schema_key: str) -> None:
+        self.topology = topology
+        self.transport = transport
+        self.schema_key = schema_key
+
+    @property
+    def inter_participants(self) -> int:
+        return self.topology.n_tiers
+
+    @property
+    def flat_participants(self) -> int:
+        return len(self.topology.live)
+
+    @property
+    def hops_per_bucket(self) -> int:
+        return 3
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"TierSchedule(tiers={self.topology.n_tiers}, live={len(self.topology.live)})"
+
+
+_TIER_SCHEDULES: Dict[Any, TierSchedule] = {}
+
+
+def tier_schedule_for(sync_plan: Any) -> Optional[TierSchedule]:
+    """The tiered schedule of one bucketed layout, or ``None`` for the flat
+    path (no tier map, no transport, a degenerate topology:
+    ``parallel/tiering.py`` decides). A quorum shrink changes the topology
+    key, so the schema is scheduled anew in the new epoch with no
+    collective. Journals ``plan.tier`` when it builds one."""
+    from metrics_tpu_torch.parallel import tiering
+
+    topo = tiering.active_topology()
+    if topo is None or sync_plan is None:
+        return None
+    schema_key = getattr(sync_plan, "schema_key", "")
+    key = (schema_key, topo.key)
+    with _PLANS_LOCK:
+        sched = _TIER_SCHEDULES.get(key)
+    transport = tiering.active_tier_transport()
+    if sched is not None and sched.transport is transport:
+        return sched
+    sched = TierSchedule(topo, transport, schema_key)
+    with _PLANS_LOCK:
+        if len(_TIER_SCHEDULES) >= _PLAN_CACHE_MAX:
+            _TIER_SCHEDULES.clear()
+        _TIER_SCHEDULES[key] = sched
+    if journal.ACTIVE:
+        journal.record(
+            "plan.tier", schema_crc=zlib.crc32(schema_key.encode()) & 0x7FFFFFFF, tiers=topo.n_tiers,
+            inter_participants=sched.inter_participants, flat_participants=sched.flat_participants,
+        )
+    return sched
 
 
 # ---------------------------------------------------------------------------

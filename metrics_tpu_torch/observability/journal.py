@@ -47,11 +47,8 @@ __all__ = [
     "set_rank_provider",
 ]
 
-#: Event-kind catalog: ``<class>.<what>``. The class (before the dot) is the
-#: unit of :func:`on_event`'s filter. Kinds this package does not emit yet
-#: are kept so that the catalog is the JAX package's: ``sync.hop`` comes
-#: with tiering, ``health.channel_*``, ``resilience.*`` and ``controller.*``
-#: with quorum and probation (ROADMAP.md, section A, item 10).
+#: Event-kind catalog: ``<class>.<what>``, the JAX package's. The class
+#: (before the dot) is the unit of :func:`on_event`'s filter.
 EVENT_KINDS: Dict[str, str] = {
     # ---- compiled hot path -----------------------------------------------
     "compiled.trace": "an XLA (re)trace of a compiled update/forward program",

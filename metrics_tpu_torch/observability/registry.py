@@ -11,8 +11,8 @@ log shipper reads the snapshots of both packages.
   ``degraded`` (a resolve that fell back to local state), ``gather_s``,
   ``resolve_wait_s`` and ``overlap_saved_s``. Blocking syncs count no round,
   as in the JAX package. The tier byte counters (``intra_tier_bytes``,
-  ``inter_tier_bytes``, ``inter_tier_bytes_saved``) stay 0 until tiering
-  (ROADMAP.md A10.3).
+  ``inter_tier_bytes``, ``inter_tier_bytes_saved``) take what each hop of a
+  tiered sync put on the wire (``parallel/bucketing.py``).
 - ``compile`` is what ``compile_stats()`` reads (:func:`compile_stats_view`),
   counted by the compiled hot path (``core/compiled.py``); ``plan`` counts
   the plan store's ``builds`` and ``cache_hits`` taken by this owner, its
@@ -24,11 +24,11 @@ log shipper reads the snapshots of both packages.
 - ``health`` counts typed sync failures by class and the degradations,
   bumped by the ``on_error`` ladders of ``Metric`` and ``MetricCollection``.
 - :data:`PROCESS` holds the process-wide facts: ``watchdog_fired`` and
-  ``watchdog_margin_s`` (``parallel/health.py``). The channel and quorum
+  ``watchdog_margin_s`` (``parallel/health.py``), and the channel and quorum
   counters (``channel_suspect_latched``, ``channel_resets``,
   ``channel_readmits``, ``membership_transitions``, ``quorum_shrinks``,
   ``quorum_readmits``, ``suspect_episode_s``) and ``adaptive_timeout_s``
-  stay 0 until quorum and probation (A10.2).
+  (``parallel/resilience.py``).
 
 ``telemetry(delta=True)`` gives the numeric change since the previous delta
 call; :func:`telemetry_jsonl` and :func:`telemetry_prometheus` encode a

@@ -293,13 +293,21 @@ def launch_round(
     sync_fn: Optional[Callable[[], Dict[str, Any]]] = None,
     on_missing: str = "raise",
     stats: Optional[Dict[str, Any]] = None,
+    sync_precision: Optional[str] = None,
 ) -> AsyncSyncRound:
     """Launch the health-checked host sync of ``snapshot`` on the lane and
     return at once. The round's future holds the synced state, or the same
     typed ``SyncError`` the blocking path would raise: it is the blocking
-    code (``host_sync_state`` with this round's ``sync_epoch`` and
-    ``group``), run on another thread. ``sync_fn`` replaces the transport (a
-    custom ``dist_sync_fn``)."""
+    code (``host_sync_state`` with this round's ``sync_epoch``, ``group``,
+    ``on_missing`` and ``sync_precision``), run on another thread, so a
+    quorum round that loses ranks shrinks and retries over the survivors on
+    the lane, and a tiered round runs the same (optionally quantized) slow
+    hop. ``sync_fn`` replaces the transport (a custom ``dist_sync_fn``)."""
+    from metrics_tpu_torch.parallel.quantize import validate_sync_precision
+    from metrics_tpu_torch.parallel.sync import check_on_missing
+
+    check_on_missing(on_missing, group)
+    sync_precision = validate_sync_precision(sync_precision)
     round_ = AsyncSyncRound(snapshot, reductions, update_count=update_count, epoch=epoch, metric_name=metric_name)
     leaves = _cuda_tensors(snapshot)
     if leaves:
@@ -325,6 +333,7 @@ def launch_round(
             on_missing=on_missing,
             sync_epoch=round_.epoch,
             stats=stats,
+            sync_precision=sync_precision,
         )
 
     def task() -> Dict[str, Any]:

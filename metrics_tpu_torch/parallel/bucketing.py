@@ -1,6 +1,6 @@
 """Bucketed host sync: one collective per dtype/reduction class, not per leaf.
 
-Counterpart of the flat (untiered) path of ``metrics_tpu/parallel/bucketing.py``.
+Counterpart of ``metrics_tpu/parallel/bucketing.py``.
 Given a state dict, or the key-prefixed combined states of a whole
 ``MetricCollection``, the planner classifies every leaf into a
 :class:`SyncPlan`:
@@ -23,10 +23,27 @@ state's device, crosses the collective on the process group's collective
 device (``sync._gather``: the card under NCCL, the host under gloo) and comes
 back to the state's device.
 
+**The tiered schedule.** With a tier map and a subset transport
+(``parallel/tiering.py``; the default world only), each bucket's one flat
+gather becomes three hops: a gather within the tier (fast hop), ONE exchange
+between the tier leaders (slow hop), and a gather within the tier again that
+hands every member the leaders' result. At full precision the blocks move
+raw, so the result is the flat gather's, bit for bit.
+``sync_precision`` ("bf16"/"int8", ``parallel/quantize.py``) encodes the
+slow hop's wire alone, on the state's device (so a host transport copies
+the smaller wire): a float reduce bucket is reduced within the tier first
+(float32), the tier partials cross encoded and combine with a Kahan sum in
+tier order; a cat bucket's padded blocks cross encoded. Integer buckets pass
+raw. Each hop adds its bytes to ``intra_tier_bytes`` / ``inter_tier_bytes``
+/ ``inter_tier_bytes_saved`` of the owner's ``sync`` telemetry and journals
+``sync.hop``. Without a topology the flat path runs, with no extra
+collective.
+
 The caller must have verified the gathered health words first:
 ``host_sync_state`` does, and is the entry point. ``METRICS_TPU_FUSED_SYNC=0``
 restores the per-leaf path.
 """
+import time
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -34,12 +51,13 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
+from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.parallel.health import (
     cat_family_names,
     cat_row_count,
     header_cat_lengths,
 )
-from metrics_tpu_torch.parallel.sync import _sum_keep_dtype
+from metrics_tpu_torch.parallel.sync import _divide, _mean_over_ranks, _rank_order_total, _sum_keep_dtype
 
 __all__ = [
     "LeafSpec",
@@ -55,13 +73,9 @@ __all__ = [
 FUSED_SYNC_ENV = "METRICS_TPU_FUSED_SYNC"
 
 
-def _mean(g: torch.Tensor) -> torch.Tensor:
-    return torch.mean(g if g.is_floating_point() else g.to(torch.float32), dim=0)
-
-
 _REDUCERS = {
     "sum": _sum_keep_dtype,
-    "mean": _mean,
+    "mean": _mean_over_ranks,
     "max": lambda g: torch.amax(g, dim=0),
     "min": lambda g: torch.amin(g, dim=0),
 }
@@ -209,25 +223,164 @@ def _assemble_cat(spec: LeafSpec, pieces: List[torch.Tensor], local_value: Any, 
     return torch.cat(pieces)
 
 
+# ---------------------------------------------------------------------------
+# the two-level (tiered) schedule
+# ---------------------------------------------------------------------------
+
+
+def _bump_stats(stats: Optional[Dict[str, Any]], key: str, by: float) -> None:
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + by
+
+
+def _tier_collective(transport: Any, x: torch.Tensor, ranks: Any, timeout: Optional[float],
+                     what: str) -> torch.Tensor:
+    """One watchdog-guarded subset gather over ``ranks``, the schedule's one
+    primitive: ``x`` goes to the transport on its own device, the stacked
+    result comes back to it."""
+    from metrics_tpu_torch.parallel.health import call_with_sync_watchdog
+
+    return call_with_sync_watchdog(
+        lambda: torch.as_tensor(transport.subset_allgather(x, frozenset(ranks))), timeout=timeout, what=what
+    ).to(x.device)
+
+
+def _account_hop(stats: Optional[Dict[str, Any]], topo: Any, hop: str, nbytes: int, participants: int,
+                 dur_s: float) -> None:
+    """A hop's byte counter and ``sync.hop`` event. ``nbytes`` is what this
+    rank put on the wire for the hop (its payload times the other
+    participants), as the JAX package counts it."""
+    _bump_stats(stats, "intra_tier_bytes" if hop == "intra" else "inter_tier_bytes", int(nbytes))
+    if journal.ACTIVE:
+        journal.record(
+            "sync.hop", label=hop, tier=-1 if topo.my_tier is None else int(topo.my_tier),
+            participants=int(participants), nbytes=int(nbytes), dur_s=float(dur_s),
+        )
+
+
+def _exchange(topo: Any, transport: Any, timeout: Optional[float], stats: Optional[Dict[str, Any]], item: int,
+              n: int, wire: Optional[torch.Tensor], enc_n: int, wire_dtype: torch.dtype, device: torch.device,
+              ) -> torch.Tensor:
+    """The slow hop and the broadcast back into the tier: the leader sends
+    ``wire`` (``enc_n`` elements) to the other leaders; every member then
+    takes the leaders' ``[n_tiers, enc_n]`` rows from its leader. Counts
+    ``inter_tier_bytes_saved`` against the flat gather's ``n``-element
+    payload of ``item`` bytes."""
+    wire_item = torch.empty((), dtype=wire_dtype).element_size()
+    k = len(topo.my_tier_ranks)
+    if topo.is_leader:
+        t0 = time.monotonic()
+        inter = _tier_collective(transport, wire, topo.leaders, timeout, "tier inter-exchange")
+        actual_inter = enc_n * wire_item * (topo.n_tiers - 1)
+        _account_hop(stats, topo, "inter", actual_inter, topo.n_tiers, time.monotonic() - t0)
+        bc_payload = inter.reshape(-1)
+    else:
+        bc_payload = torch.zeros((topo.n_tiers * enc_n,), dtype=wire_dtype, device=device)
+        actual_inter = 0
+    # what the flat gather would have moved across tiers from this rank (its
+    # payload to every rank outside its tier) less what the schedule moved
+    _bump_stats(stats, "inter_tier_bytes_saved", n * item * (len(topo.live) - k) - actual_inter)
+    t0 = time.monotonic()
+    bc = _tier_collective(transport, bc_payload, topo.my_tier_ranks, timeout, "tier broadcast")
+    _account_hop(stats, topo, "intra", bc_payload.numel() * wire_item * (k - 1), k, time.monotonic() - t0)
+    return bc[0].reshape(topo.n_tiers, enc_n)  # the leader is the min rank: row 0
+
+
+def _intra_gather(flat: torch.Tensor, topo: Any, transport: Any, timeout: Optional[float],
+                  stats: Optional[Dict[str, Any]]) -> torch.Tensor:
+    k = len(topo.my_tier_ranks)
+    t0 = time.monotonic()
+    block = _tier_collective(transport, flat, topo.my_tier_ranks, timeout, "tier intra-gather")
+    _account_hop(stats, topo, "intra", flat.numel() * flat.element_size() * (k - 1), k, time.monotonic() - t0)
+    return block
+
+
+def _tiered_allgather(flat: torch.Tensor, topo: Any, transport: Any, timeout: Optional[float],
+                      stats: Optional[Dict[str, Any]], precision: Optional[str] = None) -> torch.Tensor:
+    """The tiered replacement of one flat gather of ``flat``: the ``[world,
+    n]`` matrix in rank order (``topo.assembly``). Full precision moves the
+    blocks raw: the flat gather's rows, bit for bit. ``precision`` encodes
+    the slow hop's padded tier blocks (float payloads only)."""
+    from metrics_tpu_torch.parallel import quantize
+
+    n = flat.numel()
+    block = _intra_gather(flat, topo, transport, timeout, stats)
+    width = topo.max_tier * n
+    if not flat.dtype.is_floating_point:
+        precision = None  # fixed by the schema: the same on every rank
+    enc_n = quantize.encoded_size(width, flat.dtype, precision)
+    wire_dtype = flat.dtype if precision is None else (torch.bfloat16 if precision == "bf16" else torch.int8)
+    wire = None
+    if topo.is_leader:
+        payload = torch.nn.functional.pad(block.reshape(-1), (0, width - block.numel()))
+        wire = quantize.encode(payload, precision)
+    rows = _exchange(topo, transport, timeout, stats, flat.element_size(), n, wire, enc_n, wire_dtype, flat.device)
+    decoded = quantize.decode(rows, width, flat.dtype, precision)  # [n_tiers, width]
+    return decoded.reshape(topo.n_tiers * topo.max_tier, n)[torch.as_tensor(topo.assembly, device=flat.device)]
+
+
+def _tiered_quantized_reduce(flat: torch.Tensor, fx: str, topo: Any, transport: Any, timeout: Optional[float],
+                             stats: Optional[Dict[str, Any]], precision: str) -> torch.Tensor:
+    """The quantized slow hop of a float reduce bucket: reduced within the
+    tier at full precision (float32), the partial encoded, ONE exchange of
+    the encoded partials, decoded and combined across tiers (a Kahan sum in
+    tier order; a mean divides by the live count). Deterministic, so
+    bit-stable from run to run."""
+    from metrics_tpu_torch.parallel import quantize
+
+    n = flat.numel()
+    block = _intra_gather(flat, topo, transport, timeout, stats)
+    if fx in ("sum", "mean"):
+        partial = _rank_order_total(block.to(torch.float32))  # XLA's order: the JAX package's codes
+    elif fx == "max":
+        partial = torch.amax(block, dim=0).to(torch.float32)
+    else:
+        partial = torch.amin(block, dim=0).to(torch.float32)
+    wire = quantize.encode(partial, precision)
+    rows = _exchange(topo, transport, timeout, stats, flat.element_size(), n, wire, wire.numel(), wire.dtype,
+                     flat.device)
+    partials = quantize.decode(rows, n, torch.float32, precision)
+    if fx == "sum":
+        combined = quantize.kahan_sum(partials)
+    elif fx == "mean":
+        combined = _divide(quantize.kahan_sum(partials), len(topo.live))
+    elif fx == "max":
+        combined = torch.amax(partials, dim=0)
+    else:
+        combined = torch.amin(partials, dim=0)
+    return combined.to(flat.dtype)
+
+
 def host_sync_state_bucketed(
     state: Dict[str, Any],
     reductions: Dict[str, Any],
     words: Optional[np.ndarray] = None,
     group: Optional[Any] = None,
     timeout: Optional[float] = None,
+    sync_precision: Optional[str] = None,
+    stats: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     """Bucketed payload sync of a whole (possibly collection-combined) state.
 
     The caller verified the gathered health ``words``: the plan assumes equal
-    schemas, non-empty cat states and clean CatBuffers. Issues one collective
-    per reduce bucket and per cat bucket, the per-leaf cost of callable-``fx``
-    leaves, and one length-vector gather only past ``CAT_LENGTH_SLOTS``
-    cat-family states.
+    schemas, non-empty cat states, clean CatBuffers, and the same tier
+    topology and payload precision on every rank (the v5 columns). Issues
+    one collective per reduce bucket and per cat bucket (three hops each on
+    the tiered schedule of a default-world sync, see the module docstring),
+    the per-leaf cost of callable-``fx`` leaves, and one length-vector
+    gather only past ``CAT_LENGTH_SLOTS`` cat-family states. ``stats`` (the
+    owner's ``sync`` telemetry) takes the tier byte counters.
     """
+    from metrics_tpu_torch.core import plan as plan_mod
     from metrics_tpu_torch.parallel import sync
+    from metrics_tpu_torch.parallel.quantize import validate_sync_precision
 
-    world = sync._world_size(group)
+    world = sync._sync_world(group)
     plan = build_sync_plan(state, reductions)
+    precision = validate_sync_precision(sync_precision)
+    sched = plan_mod.tier_schedule_for(plan) if group is None else None
+    topo = sched.topology if sched is not None else None
+    transport = sched.transport if sched is not None else None
     out: Dict[str, Any] = {}
 
     # per-rank row counts of every cat-family leaf: the only dynamic input
@@ -250,7 +403,12 @@ def host_sync_state_bucketed(
             for s in specs:
                 out[s.name] = state[s.name]
             continue
-        reduced = _REDUCERS[fx](torch.stack(sync._gather(flat, group, timeout)))
+        if topo is None:
+            reduced = _REDUCERS[fx](torch.stack(sync._gather(flat, group, timeout)))
+        elif precision is not None and flat.dtype.is_floating_point:
+            reduced = _tiered_quantized_reduce(flat, fx, topo, transport, timeout, stats, precision)
+        else:
+            reduced = _REDUCERS[fx](_tiered_allgather(flat, topo, transport, timeout, stats))
         off = 0
         for s in specs:
             out[s.name] = reduced[off:off + s.item_size].reshape(s.item_shape)
@@ -271,7 +429,11 @@ def host_sync_state_bucketed(
             gathered = local_flat.new_zeros((world, 0))
         else:
             padded = torch.nn.functional.pad(local_flat, (0, max_total - local_flat.numel()))
-            gathered = torch.stack(sync._gather(padded, group, timeout))  # [world, max_total]
+            if topo is None:
+                gathered = torch.stack(sync._gather(padded, group, timeout))  # [world, max_total]
+            else:
+                # the slow hop encoded iff a precision is set and the dtype is float
+                gathered = _tiered_allgather(padded, topo, transport, timeout, stats, precision)
         for j, s in enumerate(specs):
             pieces = []
             for r in range(world):

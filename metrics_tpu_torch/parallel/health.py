@@ -19,9 +19,14 @@ single ``all_gather``::
 - ``sync_epoch``: the overlapped round this gather belongs to, 0 for a
   blocking sync (``parallel/async_sync.py`` sets it per round), so a rank
   resolving a background round never pairs with a peer's foreground sync;
-- ``member_epoch`` is 0, ``live_count`` the world size, ``tier`` -1 and
-  ``precision`` 0 until the resilience and tiering layers are ported; they
-  are verified all the same, so a peer running those layers fails loudly;
+- ``member_epoch`` and ``live_count``: the negotiated quorum membership
+  (``parallel/resilience.py``; a sync over another process group reports
+  that group's size);
+- ``tier``: this rank's tier id under the tier map, -1 without one or over
+  another process group (``parallel/tiering.py``); the verifier holds the
+  gathered column to :func:`~metrics_tpu_torch.parallel.tiering.expected_tier_column`;
+- ``precision``: the slow hop's ``sync_precision`` code
+  (``parallel/quantize.py``);
 - ``count_j``: participation count of the j-th state (sorted by name);
 - ``len_j``: row count of the j-th cat-family state, which the bucketed
   planner (``parallel/bucketing.py``) reads to size its ragged buffers.
@@ -33,7 +38,8 @@ matrix and raises the same typed exception, or none.
 
 The module also holds the liveness guard :func:`call_with_sync_watchdog`
 (``METRICS_TPU_SYNC_TIMEOUT_S``, default 600 s, 0 disables) and the
-channel-suspect latch it sets when a collective times out.
+channel-suspect functions, which delegate to the probation state machine of
+``parallel/resilience.py``.
 """
 import os
 import threading
@@ -46,6 +52,7 @@ import torch
 
 from metrics_tpu_torch.core.cat_buffer import CatBuffer
 from metrics_tpu_torch.observability import journal
+from metrics_tpu_torch.parallel import resilience
 from metrics_tpu_torch.observability.registry import bump_process, set_process
 from metrics_tpu_torch.utils.exceptions import (
     NonFiniteStateError,
@@ -119,10 +126,15 @@ DEFAULT_SYNC_TIMEOUT_S = 600.0
 
 
 def get_sync_timeout(override: Optional[float] = None) -> float:
-    """Effective watchdog timeout: the explicit override, else the
-    ``METRICS_TPU_SYNC_TIMEOUT_S`` env knob, else 600 s."""
+    """Effective watchdog timeout: the explicit override, else the adaptive
+    controller's (``resilience.AdaptiveController``), else the
+    ``METRICS_TPU_SYNC_TIMEOUT_S`` env knob, else 600 s. The watchdog only
+    bounds how long this rank waits, so a rank-local value is safe."""
     if override is not None:
         return float(override)
+    adaptive = resilience.adaptive_sync_timeout()
+    if adaptive is not None:
+        return float(adaptive)
     return float(os.environ.get("METRICS_TPU_SYNC_TIMEOUT_S", DEFAULT_SYNC_TIMEOUT_S))
 
 
@@ -283,11 +295,21 @@ def build_health_word(
     state: Dict[str, Any],
     reductions: Dict[str, Any],
     update_count: int = 0,
-    world: int = 1,
+    world: Optional[int] = None,
     sync_epoch: int = 0,
+    sync_precision: Any = None,
 ) -> np.ndarray:
     """This rank's int32 health word ``[WORD_WIDTH]`` for one state dict.
-    ``world`` fills the ``live_count`` column, ``sync_epoch`` the round's."""
+
+    ``world`` is the size of the process group a sync runs over when that is
+    not the default world: it fills ``live_count`` and the tier column is -1
+    (tiers are ranks of the default world). ``None`` (the default world)
+    reads the membership and the tier map, as the JAX package does.
+    ``sync_epoch`` is the round's, ``sync_precision`` the slow hop's codec.
+    """
+    from metrics_tpu_torch.parallel.quantize import precision_code, validate_sync_precision
+    from metrics_tpu_torch.parallel.tiering import my_tier_id
+
     names, kinds = _state_kinds(state)
     overflow = int(any(kinds[n] == "catbuf" and state[n].overflowed for n in names))
     nonfinite = int(state_poisoned(state))
@@ -316,10 +338,10 @@ def build_health_word(
         nonfinite,
         len(names),
         int(sync_epoch),
-        0,  # member_epoch: the full world until the resilience slice
-        int(world),  # live_count
-        -1,  # tier: no tier map until the tiering slice
-        0,  # precision: full
+        int(resilience.membership_epoch()),
+        int(resilience.live_count() if world is None else world),
+        int(my_tier_id() if world is None else -1),
+        precision_code(validate_sync_precision(sync_precision)),
     ] + slots + length_slots
     return np.asarray(word, dtype=np.int32)
 
@@ -331,6 +353,7 @@ def verify_health_words(
     *,
     strict_update_count: bool = False,
     metric_name: str = "metric",
+    subgroup: bool = False,
 ) -> None:
     """Verify the gathered ``[world, width]`` health words.
 
@@ -338,7 +361,8 @@ def verify_health_words(
     raises the same typed exception, or none. The checks and their order are
     the JAX package's: emptiness before schema, so that an empty rank (whose
     unknown item spec perturbs the hash) gets the "no update() before
-    sync()" message.
+    sync()" message. ``subgroup`` (a sync over a process group that is not
+    the default world) expects the tier column all -1.
     """
     words = np.asarray(words)
     world = words.shape[0]
@@ -377,13 +401,24 @@ def verify_health_words(
             "over. All processes raised together."
         )
 
-    # no tier map exists in this package yet: every rank must report -1
+    # every rank derives the expected tier column from the negotiated live
+    # set and its own map: an asymmetric map cannot match every rank's
+    # expectation, so the tier schedule is refused before any payload moves
+    from metrics_tpu_torch.parallel.tiering import expected_tier_column
+
     tiers = words[:, _F_TIER]
-    if not (tiers == -1).all():
+    expected_tiers = None if subgroup else expected_tier_column(world)
+    tier_ok = (
+        (tiers == -1).all()
+        if expected_tiers is None
+        else expected_tiers.shape[0] == world and (tiers == expected_tiers).all()
+    )
+    if not tier_ok:
         raise StateDivergenceError(
-            f"tier-topology skew for {metric_name}: gathered tier column "
-            f"{tiers.tolist()} does not match this rank's expected flat world "
-            "(all -1): ranks disagree on the tier map. All processes raised together."
+            f"tier-topology skew for {metric_name}: gathered tier column {tiers.tolist()} does not match this "
+            f"rank's expected {'flat world (all -1)' if expected_tiers is None else expected_tiers.tolist()}: "
+            "ranks disagree on the tier map (asymmetric METRICS_TPU_TIER_SIZE / set_tier_map, or tiering "
+            "configured on only some ranks). All processes raised together."
         )
 
     precisions = words[:, _F_PRECISION]
@@ -461,49 +496,48 @@ def verify_health_words(
         )
 
 
-def is_missing_rank_error(err: BaseException) -> bool:
-    """Is this sync failure of the missing-rank class (a watchdog timeout, or
-    a divergent header, which a dead rank would also cause)? The class that
-    ``on_missing="local"`` degrades."""
-    return isinstance(err, (SyncTimeoutError, StateDivergenceError))
+#: The missing-rank class (a watchdog timeout, or a divergent header, which
+#: a dead rank also causes): what ``on_missing`` acts on.
+is_missing_rank_error = resilience.is_missing_rank_error
 
 
 # ---------------------------------------------------------------------------
-# Liveness guards: the sync watchdog and the channel-suspect latch
+# Liveness guards: the sync watchdog and the channel's probation
 # ---------------------------------------------------------------------------
 
-# Set when a watchdog fires: the abandoned worker may still sit inside its
-# collective, so a new collective could pair with a peer's stale one. Host
-# syncs refuse until reset_channel_health(). (The JAX package cools the
-# latch down on its own; that probation state machine comes with the
-# resilience slice.)
-_CHANNEL = {"suspect": False}
+# A fired watchdog puts the channel in probation (``parallel/resilience.py``):
+# the abandoned worker may still sit inside its collective, so the next syncs
+# refuse; after a cooldown one probe round goes through, and its success
+# readmits the channel. These names delegate there.
 
 
 def channel_is_suspect() -> bool:
-    """True after a sync watchdog fired and until :func:`reset_channel_health`."""
-    return _CHANNEL["suspect"]
+    """True while the channel is in probation (a watchdog fired and no probe
+    round has succeeded yet): host syncs refuse."""
+    return resilience.channel_is_suspect()
 
 
 def mark_channel_suspect() -> None:
-    """Latch the channel suspect: every later host sync of this process
-    refuses with :class:`SyncTimeoutError` before issuing a collective."""
-    _CHANNEL["suspect"] = True
+    """Enter probation (the watchdog's and the overlapped rounds' one entry):
+    a failed probe round re-enters with the cooldown doubled."""
+    resilience.mark_channel_suspect()
 
 
 def reset_channel_health() -> None:
-    """Clear the latch, once the process group was re-established."""
-    _CHANNEL["suspect"] = False
+    """Force the channel healthy at once (an operator who re-established the
+    process group); with probation a suspect channel also heals itself."""
+    resilience.reset_channel_health()
 
 
 def call_with_sync_watchdog(fn: Callable[[], T], *, timeout: Optional[float] = None, what: str = "host collective") -> T:
     """Run ``fn`` on a daemon worker thread and wait at most ``timeout``
     seconds for it (``None`` reads ``METRICS_TPU_SYNC_TIMEOUT_S``, default
-    600; 0 or less calls ``fn`` inline).
+    600, unless the adaptive controller set one; 0 or less calls ``fn``
+    inline).
 
     A collective blocked on a dead or stalled peer would block forever; here
-    it raises :class:`SyncTimeoutError` and latches the channel suspect (the
-    worker cannot be cancelled and is left to die with the process). A fired
+    it raises :class:`SyncTimeoutError` and puts the channel in probation
+    (the worker cannot be cancelled and is left to die with the process). A fired
     watchdog bumps the process counter ``watchdog_fired`` and journals
     ``health.watchdog``; a finished collective sets ``watchdog_margin_s``
     (the timeout minus its time on the host's clock) and journals

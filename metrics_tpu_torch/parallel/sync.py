@@ -26,7 +26,16 @@ spans them) or a list of ranks. Each runs through one seam,
 No health header and no watchdog run there: they are host code, as the JAX
 package's in-``jit`` sync has neither.
 
-The JAX package's quorum and tiered layers are not ported yet.
+**Quorum** (``on_missing="quorum"``, ``parallel/resilience.py``): a sync
+that loses ranks negotiates the survivors and runs again over them; once
+the membership is degraded, every default-world gather of :func:`_gather`
+routes through the installed transport's ``subset_allgather`` over the
+survivors (same watchdog), and the world a gather spans is
+``resilience.effective_world()``. Quorum runs over the default world: with
+another ``process_group`` it raises :class:`MetricsTPUUserError` (the JAX
+package's host sync takes no group at all). The in-program sync takes no
+part in quorum, as the JAX package's ``psum`` over a mesh axis does not: it
+runs over the group its axis names.
 """
 from typing import Any, Callable, Dict, List, Optional, Union
 
@@ -34,12 +43,7 @@ import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch.observability import journal
-from metrics_tpu_torch.parallel.health import (
-    build_health_word,
-    call_with_sync_watchdog,
-    channel_is_suspect,
-    verify_health_words,
-)
+from metrics_tpu_torch.parallel.health import build_health_word, call_with_sync_watchdog, verify_health_words
 from metrics_tpu_torch.utils.exceptions import (
     MetricsTPUUserError,
     StateDivergenceError,
@@ -49,8 +53,8 @@ from metrics_tpu_torch.utils.exceptions import (
 
 ReduceFx = Union[str, Callable, None]
 
-#: Accepted ``on_missing`` policies; ``"quorum"`` waits for the resilience slice.
-ON_MISSING_MODES = ("raise", "local")
+#: Accepted ``on_missing`` policies.
+ON_MISSING_MODES = ("raise", "quorum", "local")
 
 _EPS = 1e-6
 
@@ -264,13 +268,59 @@ def _all_gather(x: torch.Tensor, group: Optional[Any]) -> List[torch.Tensor]:
     return out
 
 
+def _sync_world(group: Optional[Any]) -> int:
+    """The ranks a host gather over ``group`` spans: the default world's
+    negotiated survivors (``resilience.effective_world``), or the group's
+    size."""
+    from metrics_tpu_torch.parallel.resilience import effective_world
+
+    return effective_world() if group is None else _world_size(group)
+
+
+#: What torch.distributed's backends say when a peer process is gone: gloo's
+#: closed or reset TCP pair, NCCL's failed remote.
+_PEER_GONE = ("connection closed by peer", "connection reset by peer", "remote process exited", "broken pipe")
+
+
+def _all_gather_or_peer_lost(x: torch.Tensor, group: Optional[Any]) -> List[torch.Tensor]:
+    """:func:`_all_gather`, with a backend error that says a peer process is
+    gone raised as :class:`SyncTimeoutError` (the missing-rank class) and
+    the channel put in probation, as a fired watchdog does. The JAX
+    package's collective waits on a dead peer until its watchdog fires;
+    gloo reports the peer's closed connection at once."""
+    try:
+        return _all_gather(x, group)
+    except RuntimeError as err:
+        if isinstance(err, SyncError) or not any(m in str(err).lower() for m in _PEER_GONE):
+            raise
+        from metrics_tpu_torch.parallel.health import mark_channel_suspect
+
+        mark_channel_suspect()
+        raise SyncTimeoutError(
+            f"all_gather failed: a peer process is gone ({str(err).splitlines()[0][:200]}). Recover with "
+            "Metric.sync(on_error='local'), or sync with on_missing='quorum' over the survivors."
+        ) from err
+
+
 def _gather(x: torch.Tensor, group: Optional[Any], timeout: Optional[float] = None) -> List[torch.Tensor]:
     """One watchdog-guarded collective. ``x`` crosses it on
     :func:`_collective_device` (the card under NCCL, the host under gloo)
-    and each rank's piece comes back to ``x``'s device."""
+    and each rank's piece comes back to ``x``'s device. A peer that is gone
+    raises :class:`SyncTimeoutError` (:func:`_all_gather_or_peer_lost`).
+    Once a quorum transition shrank the default world's membership, a
+    gather of the default world runs over the survivors through the quorum
+    transport, which takes ``x`` on its own device."""
+    from metrics_tpu_torch.parallel.resilience import active_subset_transport
+
     device = x.device
-    moved = x.to(_collective_device(group))
-    pieces = call_with_sync_watchdog(lambda: _all_gather(moved, group), timeout=timeout, what="all_gather")
+    subset = active_subset_transport() if group is None else None
+    if subset is None:
+        moved = x.to(_collective_device(group))
+        pieces = call_with_sync_watchdog(lambda: _all_gather_or_peer_lost(moved, group), timeout=timeout,
+                                         what="all_gather")
+    else:
+        pieces = call_with_sync_watchdog(lambda: list(torch.as_tensor(subset(x)).unbind(0)), timeout=timeout,
+                                         what="all_gather")
     return [p.to(device) for p in pieces]
 
 
@@ -286,7 +336,7 @@ def gather_all_arrays(
     ``all_shapes`` (``[world, ndim]``), when the caller knows every rank's
     shape already, saves the shape gather.
     """
-    if not distributed_available(group):
+    if not distributed_available(group) or _sync_world(group) == 1:
         return [result]
     if result.ndim == 0:
         return [p.reshape(()) for p in _gather(result.reshape(1), group, timeout)]
@@ -304,12 +354,41 @@ def gather_all_arrays(
     return [g[tuple(slice(0, d) for d in shape.tolist())] for g, shape in zip(gathered, all_shapes)]
 
 
+def _rank_order_total(gathered: torch.Tensor) -> torch.Tensor:
+    """The float sum over ranks (dim 0) adding the ranks' rows in rank
+    order, half precision accumulated in float32: XLA's order, which the JAX
+    package's sums have and ``torch.sum``'s vectorized reduction does not
+    past a few rows. Returned in the accumulation dtype."""
+    acc = torch.float32 if gathered.element_size() < 4 else gathered.dtype
+    total = gathered[0].to(acc)
+    for row in gathered[1:]:
+        total = total + row.to(acc)
+    return total
+
+
 def _sum_keep_dtype(gathered: torch.Tensor) -> torch.Tensor:
     """The sum over ranks in the state's own dtype (``torch.sum`` would
-    widen an int32 state to int64, as the JAX package does not)."""
+    widen an int32 state to int64, as the JAX package does not); floats add
+    in rank order (:func:`_rank_order_total`)."""
     if gathered.dtype == torch.bool:
         return torch.sum(gathered, dim=0)
+    if gathered.is_floating_point():
+        return _rank_order_total(gathered).to(gathered.dtype)
     return torch.sum(gathered, dim=0, dtype=gathered.dtype)
+
+
+def _divide(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x / n`` correctly rounded on every device: CUDA divides by a Python
+    scalar as a product with its reciprocal, an ulp away from XLA's (and the
+    CPU's) quotient at times, so the divisor is a tensor."""
+    return x / torch.full_like(x, n)
+
+
+def _mean_over_ranks(gathered: torch.Tensor) -> torch.Tensor:
+    """The mean over ranks as ``jnp.mean``: the rank-order sum divided by
+    the rank count, an integer state's in float32."""
+    g = gathered if gathered.is_floating_point() else gathered.to(torch.float32)
+    return _divide(_rank_order_total(g), g.shape[0]).to(g.dtype)
 
 
 def host_sync_leaf(
@@ -352,7 +431,7 @@ def host_sync_leaf(
                     "overflowed its capacity (rows were overwritten inside jit). "
                     "All processes raised. Use a larger `with_capacity(...)`."
                 )
-        merged = CatBuffer(_world_size(group) * value.capacity)
+        merged = CatBuffer(_sync_world(group) * value.capacity)
         for rows in gather_all_arrays(value.values(), group, timeout):
             merged.append(rows)
         return merged
@@ -372,7 +451,7 @@ def host_sync_leaf(
         return value
     known_shapes = None
     if not precheck and fx not in ("cat", None) and value.ndim:
-        known_shapes = torch.tensor(value.shape).expand(_world_size(group), value.ndim)
+        known_shapes = torch.tensor(value.shape).expand(_sync_world(group), value.ndim)
     pieces = gather_all_arrays(value, group, timeout, all_shapes=known_shapes)
     if fx == "cat" or fx is None:
         return torch.cat([p.unsqueeze(0) if p.ndim == 0 else p for p in pieces])
@@ -380,7 +459,7 @@ def host_sync_leaf(
     if fx == "sum":
         return _sum_keep_dtype(gathered)
     if fx == "mean":
-        return torch.mean(gathered if gathered.is_floating_point() else gathered.to(torch.float32), dim=0)
+        return _mean_over_ranks(gathered)
     if fx == "max":
         return torch.amax(gathered, dim=0)
     if fx == "min":
@@ -398,16 +477,19 @@ def _collective_device(group: Optional[Any]) -> torch.device:
     return torch.device("cpu")
 
 
-def check_on_missing(on_missing: str) -> str:
-    """Validate an ``on_missing`` policy: ``"raise"`` or ``"local"``."""
-    if on_missing == "quorum":
-        raise NotImplementedError(
-            "on_missing='quorum' (a sync that shrinks to the surviving ranks) comes "
-            "with the port of parallel/resilience.py, a later slice (ROADMAP.md, "
-            "the sync stack's remaining items); use 'raise' or 'local'."
-        )
+def check_on_missing(on_missing: str, group: Optional[Any] = None) -> str:
+    """Validate an ``on_missing`` policy: ``"raise"``, ``"quorum"`` or
+    ``"local"``. Quorum negotiates over the default world, so it refuses
+    another process ``group``."""
     if on_missing not in ON_MISSING_MODES:
         raise MetricsTPUUserError(f"`on_missing` must be one of {ON_MISSING_MODES}, got {on_missing!r}")
+    if on_missing == "quorum" and group is not None:
+        raise MetricsTPUUserError(
+            "on_missing='quorum' negotiates the surviving ranks of the default torch.distributed world (its "
+            "transport's subset gathers and the health word's membership columns are the default world's); a "
+            "sync over another process_group cannot shrink. Use on_missing='raise' or 'local' with "
+            "process_group, or drop process_group."
+        )
     return on_missing
 
 
@@ -424,6 +506,7 @@ def host_sync_state(
     on_missing: str = "raise",
     sync_epoch: int = 0,
     stats: Optional[Dict[str, Any]] = None,
+    sync_precision: Optional[str] = None,
 ) -> Dict[str, Any]:
     """Sync a whole metric-state dict across processes.
 
@@ -439,49 +522,89 @@ def host_sync_state(
     watchdog (``timeout``, see :func:`call_with_sync_watchdog`).
 
     A sync of a distributed world journals ``sync.gather`` first.
-    Once a watchdog fired in this process, syncs refuse with
-    :class:`SyncTimeoutError` before any collective, until
-    :func:`~metrics_tpu_torch.parallel.health.reset_channel_health`.
-    ``on_missing`` is the caller's policy (``"raise"`` or ``"local"``); this
-    function raises either way and ``Metric.sync`` degrades.
+    Once a watchdog fired in this process the channel is in probation
+    (``parallel/resilience.py``): syncs refuse with
+    :class:`SyncTimeoutError` before any collective while it cools down,
+    then one sync goes through as the probe round, and its success readmits
+    the channel (:func:`~metrics_tpu_torch.parallel.health.reset_channel_health`
+    forces it at once).
+
+    ``on_missing`` is the caller's policy for a missing-rank failure (a
+    watchdog timeout, a divergent header): ``"raise"`` and ``"local"`` raise
+    here (``Metric.sync`` degrades under ``"local"``); ``"quorum"``
+    (default world only) first grows a degraded membership back when lost
+    ranks answer again, and on such a failure negotiates the survivors and
+    runs the health-checked gather once more over them.
 
     ``sync_epoch`` tags the header with the overlapped round this sync
     belongs to (0: blocking); every rank verifies it equal. The sync first
     drains the rounds this process launched (``async_sync.sync_channel``),
     so a foreground gather never pairs with a peer's background one.
-    ``stats`` is the owner's ``sync`` telemetry domain (its tier byte
-    counters stay 0 until the tiered sync is ported).
+    ``sync_precision`` (``"bf16"``/``"int8"``) encodes the slow hop of the
+    tiered schedule (``parallel/bucketing.py``) and rides the header's
+    precision column. ``stats`` is the owner's ``sync`` telemetry domain,
+    which the tiered schedule's byte counters go to.
     """
-    check_on_missing(on_missing)
+    from metrics_tpu_torch.parallel import resilience
+    from metrics_tpu_torch.parallel.quantize import validate_sync_precision
+
+    check_on_missing(on_missing, group)
+    sync_precision = validate_sync_precision(sync_precision)
     if not distributed_available(group):
         return {name: host_sync_leaf(value, reductions.get(name), group) for name, value in state.items()}
     if journal.ACTIVE:
         journal.record("sync.gather", label=metric_name, sync_epoch=int(sync_epoch), states=len(state), fused=fused)
-    if channel_is_suspect():
+    gate = resilience.channel_gate()
+    if gate == "refuse":
         raise SyncTimeoutError(
             f"host sync of {metric_name} refused: an earlier collective timed out, so "
             "cross-process collective ordering can no longer be trusted (a new gather "
-            "could pair with a peer's stale one). Recover with on_error='local', or "
-            "re-establish the process group and call "
-            "metrics_tpu_torch.parallel.health.reset_channel_health()."
+            "could pair with a peer's stale one). Recover with on_error='local'; the channel "
+            "admits a probe round after its probation cooldown, or re-establish the process "
+            "group and call metrics_tpu_torch.parallel.health.reset_channel_health()."
         )
     from metrics_tpu_torch.parallel.async_sync import sync_channel
 
-    with sync_channel():
+    def attempt() -> Dict[str, Any]:
         precheck = True
         if check_health:
             from metrics_tpu_torch.parallel import bucketing
 
             word = torch.from_numpy(build_health_word(
-                state, reductions, update_count, world=_world_size(group), sync_epoch=sync_epoch))
+                state, reductions, update_count, world=None if group is None else _world_size(group),
+                sync_epoch=sync_epoch, sync_precision=sync_precision))
             words = torch.stack(_gather(word, group, timeout)).numpy()
             verify_health_words(
-                words, state, reductions, strict_update_count=strict_update_count, metric_name=metric_name
+                words, state, reductions, strict_update_count=strict_update_count, metric_name=metric_name,
+                subgroup=group is not None,
             )
             if bucketing.fused_sync_enabled() if fused is None else fused:
-                return bucketing.host_sync_state_bucketed(state, reductions, words=words, group=group, timeout=timeout)
+                return bucketing.host_sync_state_bucketed(
+                    state, reductions, words=words, group=group, timeout=timeout, sync_precision=sync_precision,
+                    stats=stats)
             precheck = False
         return {
             name: host_sync_leaf(value, reductions.get(name), group, precheck=precheck, timeout=timeout)
             for name, value in state.items()
         }
+
+    with sync_channel():
+        if on_missing == "quorum":
+            resilience.note_sync_round()
+            resilience.maybe_rejoin(metric_name=metric_name)
+        try:
+            synced = attempt()
+        except SyncError as err:
+            if not (
+                on_missing == "quorum"
+                and resilience.is_missing_rank_error(err)
+                and resilience.negotiate_quorum(err, metric_name=metric_name) is not None
+            ):
+                raise
+            # every survivor negotiated the same membership: the header of
+            # the second attempt verifies it, its gathers run over the
+            # survivors alone
+            synced = attempt()
+    if gate == "probe":
+        resilience.channel_probe_succeeded()
+    return synced

@@ -250,12 +250,18 @@ class _Sum(port.Metric):
 
 
 def test_on_missing_quorum_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="resilience"):
-        _Sum(sync_on_missing="quorum")
+    """Quorum landed with its slice (``parallel/resilience.py``): accepted
+    over the default world, refused with another process group; an unknown
+    policy raises as before."""
+    assert _Sum(sync_on_missing="quorum").sync_on_missing == "quorum"
+    with pytest.raises(MetricsTPUUserError, match="default torch.distributed world"):
+        _Sum(sync_on_missing="quorum", process_group=[0, 1])
     with pytest.raises(MetricsTPUUserError, match="on_error"):
         _Sum(sync_on_error="ignore")
-    m = port.Precision(num_classes=5, device="cpu")
-    with pytest.raises(NotImplementedError, match="resilience"):
+    with pytest.raises(MetricsTPUUserError, match="on_missing"):
+        _Sum(sync_on_missing="shrink")
+    m = port.Precision(num_classes=5, device="cpu", process_group=[0, 1])
+    with pytest.raises(MetricsTPUUserError, match="default torch.distributed world"):
         m.sync(on_missing="quorum", distributed_available=lambda: True)
 
 

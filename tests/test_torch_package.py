@@ -288,14 +288,6 @@ def test_load_checkpoint_restores_onto_the_metric_device(tmp_path):
 NOT_YET = {
     "utils": {"compile_cache": "no twin: the XLA disk cache"},
     "models": {"inception_v3_apply": "no twin: the nn.Module is the form", "inception_v3_init": "no twin: ditto"},
-    "parallel": {
-        **{n: "A10.2: quorum, probation, the adaptive controller" for n in (
-            "AdaptiveController", "Membership", "adaptive_sync_timeout", "advance_membership", "channel_gate",
-            "channel_probe_succeeded", "commit_schedule_decision", "configure_probation", "current_membership",
-            "effective_world", "last_schedule_decisions", "live_count", "live_ranks", "maybe_rejoin",
-            "membership_epoch", "negotiate_quorum", "reset_membership", "reset_resilience",
-            "set_quorum_transport")},
-    },
 }
 SUBPACKAGES = sorted(p.parent.name for p in (ROOT / "metrics_tpu").glob("*/__init__.py")
                      if (ROOT / "metrics_tpu_torch" / p.parent.name / "__init__.py").exists())
@@ -347,19 +339,33 @@ def test_distributed_initialize_with_retry_backs_off_on_transient_errors():
         distributed_initialize_with_retry("h:1", 2, 0, max_retries=2, base_backoff_s=0.0, initialize_fn=refused)
 
 
-#: Items 9.3 and 10.1 (PR 12): the names each brings, at the JAX package's
-#: paths; ``TierSchedule``/``tier_schedule_for`` (``core.plan``) and the
-#: ``sync_precision`` argument stay queued with A10.3.
+#: Items 9.3, 10.1, 10.2 and 10.3: the names each brings, at the JAX
+#: package's paths. Nothing of ``parallel`` or ``core.plan`` is queued any
+#: more.
 LANDED = {
     "core.plan": ("ExecutionPlan", "plan_for", "clear_plans", "plan_cache_info", "unified_plan_enabled",
-                  "next_sync_epoch", "fused_step_refusal", "compiled_step"),
+                  "next_sync_epoch", "fused_step_refusal", "compiled_step", "TierSchedule", "tier_schedule_for"),
     "parallel": ("sync_in_jit", "sync_leaf_in_jit", "jit_distributed_available", "AsyncSyncRound",
                  "STALENESS_POLICIES", "drain_round", "launch_round", "resolve_round", "sync_channel"),
     "parallel.async_sync": ("SerialExecutor", "new_sync_stats", "validate_staleness_policy"),
     "core.cat_buffer": ("sync_cat_buffer_in_jit",),
     "utils.exceptions": ("StaleSyncError",),
+    # 10.2: quorum, probation and the adaptive controller
+    "parallel.resilience": ("Membership", "AdaptiveController", "advance_membership", "active_subset_transport",
+                            "adaptive_sync_timeout", "channel_gate", "channel_is_suspect",
+                            "channel_probe_succeeded", "commit_schedule_decision", "configure_probation",
+                            "current_membership", "effective_world", "is_missing_rank_error",
+                            "last_schedule_decisions", "live_ranks", "live_count", "mark_channel_suspect",
+                            "maybe_rejoin", "membership_epoch", "negotiate_quorum", "note_sync_round",
+                            "reset_channel_health", "reset_membership", "reset_resilience", "set_quorum_transport",
+                            "FLAP_WINDOW_ROUNDS", "DEFAULT_PROBATION_COOLDOWN_S"),
+    # 10.3: the tiers and the quantized slow hop
+    "parallel.tiering": ("TIER_SIZE_ENV", "TierTopology", "active_tier_transport", "active_topology",
+                         "expected_tier_column", "my_tier_id", "reset_tiering", "set_tier_map", "set_tier_transport",
+                         "tier_of_rank", "tier_topology", "tiering_configured"),
+    "parallel.quantize": ("BLOCK", "PRECISION_CODES", "SYNC_PRECISIONS", "decode", "encode", "encoded_size",
+                          "kahan_sum", "precision_code", "validate_sync_precision"),
 }
-QUEUED = {"core.plan": {"TierSchedule": "A10.3", "tier_schedule_for": "A10.3"}}
 
 
 def _reference_module_names(path):
@@ -394,14 +400,17 @@ def test_items_9_3_and_10_1_export_at_the_reference_paths(path):
     for name in LANDED[path]:
         assert name in ref_names, f"metrics_tpu.{path} has no {name}"
         assert hasattr(mod, name), f"metrics_tpu_torch.{path} lacks {name}"
-    for name in QUEUED.get(path, {}):
-        assert name in ref_names and not hasattr(mod, name), f"{name} is ported now: take it out of QUEUED"
+    if path.startswith("parallel.") or path == "core.plan":
+        # a module of the sync stack exports every public name its JAX twin defines
+        missing = sorted(n for n in ref_names if not n.startswith("_") and not hasattr(mod, n)
+                         and n not in ("annotations",))
+        assert missing == [], f"metrics_tpu_torch.{path} lacks {missing}"
 
 
 def test_constructor_arguments_match_the_reference():
     """``Metric`` and ``MetricCollection`` take the JAX package's arguments,
-    ``sync_mode`` and ``staleness_policy`` included; ``sync_precision`` waits
-    for A10.3 and ``device`` is the port's own."""
+    ``sync_mode``, ``staleness_policy`` and ``sync_precision`` included;
+    ``device`` is the port's own."""
     import inspect
 
     from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -409,7 +418,7 @@ def test_constructor_arguments_match_the_reference():
     for cls, path in (("Metric", "core/metric.py"), ("MetricCollection", "core/collections.py")):
         mine = set(inspect.signature(getattr(port, cls).__init__).parameters) - {"self", "args", "kwargs"}
         theirs = _reference_init_args(path, cls) - {"args", "kwargs"}
-        assert theirs - mine == {"sync_precision"}, cls
+        assert theirs - mine == set(), cls
         assert mine - theirs == ({"device"} if cls == "Metric" else set()), cls
     mc = port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_mode="overlap", staleness_policy="merge")
     assert (mc.sync_mode, mc.staleness_policy) == ("overlap", "merge")
@@ -417,3 +426,7 @@ def test_constructor_arguments_match_the_reference():
         port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_mode="lazy")
     with pytest.raises(MetricsTPUUserError, match="staleness_policy"):
         port.MetricCollection({"a": port.Accuracy(device="cpu")}, staleness_policy="stale")
+    mc = port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_precision="int8")
+    assert mc.sync_precision == "int8"
+    with pytest.raises(MetricsTPUUserError, match="sync_precision"):
+        port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_precision="fp8")
