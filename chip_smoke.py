@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --compiled-only   # build, then the compiled phase alone
     python3 chip_smoke.py --resilience-only   # build, then the resilience phase alone
+    python3 chip_smoke.py --analysis-only   # build, then the metricslint phase alone
 
 Every phase prints its collections' ``compile_stats()``: after 16 eager
 steps the compiled hot path (``core/compiled.py``) replays a metric's
@@ -167,6 +168,14 @@ back.
 20. profiles a step of each collection (the report collection with and
    without compute groups), then prints one JSON line describing the kernels,
    then, as the last line, ``{"ok": true, "device": {...}}``.
+
+After the compiled phase comes the analysis phase (``--analysis-only`` runs
+the build and it alone): metricslint over the package, the compiled
+configurations with static pre-classification on and off (probes, the first
+compiled step, the steady steps, states ``torch.equal``, B1's launches), a
+class refuted from this file before any capture, a host read the analysis
+cannot see that the CUDA graph capture refuses, and the host-sync list under
+``torch.cuda.set_sync_debug_mode("error")`` and capture.
 
 Any failed check raises, and the script then exits non-zero without the last
 line. Without CUDA it exits with code 2 and prints no result.
@@ -3388,6 +3397,7 @@ def _compiled_run(make, step, device, knob):
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3 if kernels else None
     return obj, states, {
         "tail_ms": step_ms[-COMPILED_TAIL:],
+        "first_step_ms": step_ms[0],
         "first_compiled_step_ms": step_ms[compiled_warmup_steps()] if knob is None else None,
         "kernels_per_step": len(kernels) / n if kernels else None,
         "graph_launches_per_step": graph_launches / n,
@@ -3484,6 +3494,273 @@ def _stats_of(obj):
         cs = obj.compile_stats()
         return [cs["collection"], *cs["members"].values()]
     return [m.compile_stats() for m in obj.values()]
+
+
+# ---------------------------------------------------------------------------
+# metricslint: static pre-classification on the card
+# ---------------------------------------------------------------------------
+
+#: the environment variable that turns pre-classification off
+PRECLASSIFY_ENV = "METRICS_TPU_ANALYSIS_PRECLASSIFY"
+#: steps of the residual case (past the 16-step warm-up, so it compiles)
+RESIDUAL_STEPS = 20
+
+
+def _smoke_latch_class():
+    """A metric with an undeclared latch (``self.batches``): metricslint
+    refutes it from this file's source, before any capture."""
+    from metrics_tpu_torch.core.metric import Metric
+
+    class _SmokeLatch(Metric):
+        # the qualname the analysis indexes a class nested in a function by
+        __qualname__ = "_smoke_latch_class._SmokeLatch"
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+            self.batches = 0
+
+        def update(self, x):
+            self.batches += 1
+            self.total = self.total + torch.sum(x)
+
+        def compute(self):
+            return self.total
+
+    return _SmokeLatch
+
+
+def _smoke_host_scale(x):
+    # a host read metricslint cannot see: module-level helpers are not scanned
+    return x * (1.0 + 0.0 * x.sum().item())
+
+
+def _smoke_hidden_read_class():
+    """A metric metricslint calls clean whose update reaches ``.item()``
+    through :func:`_smoke_host_scale`: the residual case, found by the CUDA
+    graph capture."""
+    from metrics_tpu_torch.core.metric import Metric
+
+    class _SmokeHiddenRead(Metric):
+        __qualname__ = "_smoke_hidden_read_class._SmokeHiddenRead"
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + torch.sum(_smoke_host_scale(x))
+
+        def compute(self):
+            return self.total
+
+    return _SmokeHiddenRead
+
+
+def _sync_check(device):
+    """Each op of the metric pass's host-sync list on a tensor on the card:
+    does ``torch.cuda.set_sync_debug_mode("error")`` refuse it, and does a
+    CUDA graph capture? Returns the ops the sync debug mode confirmed."""
+    x = torch.rand(4096, device=device)
+    mask = x > 0.5
+    reps = torch.randint(0, 3, (4096,), device=device)
+    ops = {
+        "float()": lambda: float(x.sum()),
+        "int()": lambda: int(reps.sum()),
+        "bool()": lambda: bool(mask.any()),
+        ".item()": lambda: x.sum().item(),
+        "np.asarray()": lambda: np.asarray(x),
+        ".cpu()": lambda: x.cpu(),
+        ".tolist()": lambda: x[:4].tolist(),
+        ".numpy()": lambda: x.numpy(),
+        '.to("cpu")': lambda: x.to("cpu"),
+        "torch.cuda.synchronize()": lambda: torch.cuda.synchronize(device),
+        "nonzero()": lambda: mask.nonzero(),
+        "unique()": lambda: torch.unique(reps),
+        "masked_select()": lambda: x.masked_select(mask),
+        "torch.where(cond)": lambda: torch.where(mask),
+        "repeat_interleave()": lambda: torch.repeat_interleave(x, reps),
+    }
+    out_size = int(reps.sum())
+    clean = {  # the forms the list leaves out: no read of the device
+        "torch.where(c, a, b)": lambda: torch.where(mask, x, 0.0),
+        "repeat_interleave(2)": lambda: x.repeat_interleave(2),
+        "repeat_interleave(output_size=)": lambda: torch.repeat_interleave(x, reps, output_size=out_size),
+    }
+    confirmed, rows = [], []
+    for name, fn in list(ops.items()) + list(clean.items()):
+        torch.cuda.synchronize(device)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            debug = "ran"
+        except Exception as err:  # noqa: BLE001 - the verdict is the exception's kind
+            debug = "refused" if "synchroniz" in str(err).lower() else f"raised {type(err).__name__}"
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(device)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                fn()
+            capture = "captured"
+        except Exception as err:  # noqa: BLE001
+            capture = f"refused ({type(err).__name__})"
+        del graph
+        torch.cuda.synchronize(device)
+        if name in ops and debug == "refused":
+            confirmed.append(name)
+        rows.append(f"{name}: sync debug mode {debug}, capture {capture}")
+    assert torch.equal((x * 2).cpu(), x.cpu() * 2), "the card is not right after the capture checks"
+    for name in clean:
+        assert any(r.startswith(f"{name}: sync debug mode ran") for r in rows), f"{name} synchronized"
+    print("host-sync list on the card: " + "; ".join(rows))
+    print(f"sync debug mode confirmed {len(confirmed)} of {len(ops)}: {confirmed}")
+    return confirmed
+
+
+def _analysis_phase(smi, device):
+    """metricslint on the card: the lint of the package, each compiled
+    configuration's member verdicts and a run of it with pre-classification
+    on and off (probes run, the first compiled step's ms, the median of steps
+    25-48, states ``torch.equal``, B1's launches equal), a class refuted from
+    this file's source before any capture, the residual host read the
+    capture refuses, and the sync check of the host-sync list."""
+    import metrics_tpu_torch
+    import metrics_tpu_torch.core.collections as coll_mod
+    import metrics_tpu_torch.core.metric as metric_mod
+    from metrics_tpu_torch import MeanSquaredError
+    from metrics_tpu_torch.analysis import analyze_paths, iter_python_files, runtime
+    from metrics_tpu_torch.ops import binned_stats
+
+    print(smi)
+    pkg = os.path.dirname(os.path.abspath(metrics_tpu_torch.__file__))
+    t0 = time.perf_counter()
+    findings, errors = analyze_paths([pkg])
+    lint_s = time.perf_counter() - t0
+    assert not findings and not errors, [f.format() for f in findings] + errors
+    print(f"metricslint over metrics_tpu_torch: {len(findings)} finding(s), {len(errors)} error(s) across "
+          f"{len(iter_python_files([pkg]))} file(s) in {lint_s:.3f} s (host)")
+
+    probes = [0]
+    originals = (metric_mod.probe_traceable, coll_mod.probe_traceable)
+
+    def counting(*a, **k):
+        probes[0] += 1
+        return originals[0](*a, **k)
+
+    previous = os.environ.get(PRECLASSIFY_ENV)
+    metric_mod.probe_traceable = coll_mod.probe_traceable = counting
+    results = {}
+    try:
+        for name, make, step in _compiled_workloads(device):
+            members = dict(make(device).items())
+            os.environ[PRECLASSIFY_ENV] = "1"
+            runtime.clear_cache()
+            t0 = time.perf_counter()
+            verdicts = {k: "/".join(runtime.static_probe_verdict(m, kinds)[0] for kinds in
+                                    (("update",), ("update", "compute", "merge"))) for k, m in members.items()}
+            analysis_ms = (time.perf_counter() - t0) * 1e3
+            print(f"{name} verdicts (update/forward): " + ", ".join(f"{k} {v}" for k, v in verdicts.items())
+                  + f"; {analysis_ms:.2f} ms to analyse them from a cold cache (host)")
+            runs = {"1": [], "0": []}
+            for flag in ("1", "0", "0", "1"):
+                os.environ[PRECLASSIFY_ENV] = flag
+                runtime.clear_cache()
+                probes[0] = 0
+                launches0 = binned_stats.KERNEL_LAUNCHES
+                obj, states, stats = _compiled_run(make, step, device, None)
+                runs[flag].append(dict(stats, probes=probes[0], b1=binned_stats.KERNEL_LAUNCHES - launches0,
+                                       states=states, fallback=_compile_summary(obj)))
+            first = runs["1"][0]
+            for flag, rs in runs.items():
+                for r in rs:
+                    assert sorted(r["states"]) == sorted(first["states"])
+                    for k, v in first["states"].items():
+                        assert v.dtype == r["states"][k].dtype and torch.equal(v, r["states"][k]), \
+                            f"{name}: state {k} differs with {PRECLASSIFY_ENV}={flag}"
+                    assert r["b1"] == first["b1"], f"{name}: B1 launches {r['b1']} with {flag}, {first['b1']} with 1"
+                    assert r["fallback"] == first["fallback"], (name, r["fallback"], first["fallback"])
+            if name == "binned" and device.type == "cuda":
+                # two a step, eager or replayed, and one more in each program's warm-up
+                assert first["b1"] >= 2 * (COMPILED_STEPS + COMPILED_PROFILE_STEPS), first["b1"]
+            assert max(r["probes"] for r in runs["1"]) <= min(r["probes"] for r in runs["0"]), name
+            summary = {}
+            for flag, label in (("1", "on"), ("0", "off")):
+                rs = runs[flag]
+                summary[label] = {
+                    "verdicts": verdicts,
+                    "cold_analysis_ms": analysis_ms,
+                    "probes": [r["probes"] for r in rs],
+                    "first_step_ms": [r["first_step_ms"] for r in rs],
+                    "first_compiled_step_ms": [r["first_compiled_step_ms"] for r in rs],
+                    "tail_median_ms": float(np.median([t for r in rs for t in r["tail_ms"]])),
+                    "b1_launches": rs[0]["b1"],
+                }
+                print(f"{name} pre-classification {label}: probes {summary[label]['probes']}; step 1 (the "
+                      "compute-group planner's screen) "
+                      + " / ".join(f"{v:.3f}" for v in summary[label]["first_step_ms"])
+                      + f" ms; step {compiled_warmup_steps() + 1} (probe, warm-up, capture) "
+                      + " / ".join(f"{v:.3f}" for v in summary[label]["first_compiled_step_ms"])
+                      + f" ms; steps {COMPILED_STEPS - COMPILED_TAIL + 1}-{COMPILED_STEPS} median "
+                      f"{summary[label]['tail_median_ms']:.4f} ms (two runs); B1 launches {rs[0]['b1']}")
+            print(f"{name}: states equal (torch.equal) with pre-classification on and off; {first['fallback']}")
+            results[name] = summary
+    finally:
+        metric_mod.probe_traceable, coll_mod.probe_traceable = originals
+        if previous is None:
+            os.environ.pop(PRECLASSIFY_ENV, None)
+        else:
+            os.environ[PRECLASSIFY_ENV] = previous
+        runtime.clear_cache()
+
+    # dirty: refuted from this file before any capture
+    latch_cls = _smoke_latch_class()
+    verdict, detail = runtime.static_probe_verdict(latch_cls(device=device), ("update",))
+    assert verdict == "dirty" and "chip_smoke.py:" in detail, (verdict, detail)
+    rng = np.random.RandomState(14)
+    rows = [torch.from_numpy(rng.rand(BATCH).astype(np.float32)) for _ in range(RESIDUAL_STEPS)]
+    latch = latch_cls(device=device)
+    latch.compiled_update = True
+    for r in rows:
+        latch.update(r.to(device))
+    st = latch.compile_stats()
+    assert st["traces"] == 0 and st["dispatches"] == 0 and "chip_smoke.py:" in st["fallback"]["update"], st
+    cpu_latch = latch_cls(device="cpu")
+    cpu_latch.compiled_update = False
+    for r in rows:
+        cpu_latch.update(r)
+    # float32 sums of 2048 rows, reduced in another order on the card
+    assert latch.batches == RESIDUAL_STEPS, latch.batches
+    assert abs(float(latch.total) - float(cpu_latch.total)) <= 1e-5 * abs(float(cpu_latch.total)), "latch total"
+    print(f"dirty: {latch_cls.__name__} falls back before any capture (traces 0): {st['fallback']['update']}")
+
+    # residual: clean to the analysis, refused by the capture
+    hidden_cls = _smoke_hidden_read_class()
+    assert runtime.static_probe_verdict(hidden_cls(device=device), ("update",))[0] == "clean"
+    hidden, eager = hidden_cls(device=device), hidden_cls(device=device)
+    hidden.compiled_update, eager.compiled_update = True, False
+    for r in rows:
+        hidden.update(r.to(device))
+        eager.update(r.to(device))
+    st = hidden.compile_stats()
+    assert st["dispatches"] == 0 and "compiled dispatch failed" in st["fallback"]["update"], st
+    assert torch.equal(hidden.total, eager.total), "the residual metric's state differs from the all-eager run"
+    # later work on the card: a compiled metric replays and equals eager
+    mse, mse_eager = MeanSquaredError(device=device), MeanSquaredError(device=device)
+    mse_eager.compiled_update = False
+    for i, r in enumerate(rows):
+        target = rows[(i + 1) % len(rows)].to(device)
+        mse.update(r.to(device), target)
+        mse_eager.update(r.to(device), target)
+    assert mse.compile_stats()["dispatches"] > 0 and torch.equal(mse.compute(), mse_eager.compute())
+    print(f"residual: {hidden_cls.__name__} (verdict clean, no probe) fails capture: {st['fallback']['update']}; "
+          f"it ran eagerly from then on, state equal to the all-eager run; a compiled MeanSquaredError after it "
+          f"replayed {mse.compile_stats()['dispatches']} times, equal to eager")
+
+    confirmed = _sync_check(device)
+    print("analysis phase: " + json.dumps({"lint_s": lint_s, "configs": results, "sync_confirmed": confirmed}))
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -4084,6 +4361,11 @@ def main() -> int:
         _phase("compiled: CUDA-graph replay against eager")
         _compiled_phase(smi, device)
         return 0
+    if "--analysis-only" in sys.argv[1:]:
+        # the metricslint phase alone (no result lines)
+        _phase("analysis: metricslint pre-classification on and off, dirty, residual, sync check")
+        _analysis_phase(smi, device)
+        return 0
     if "--resilience-only" in sys.argv[1:]:
         # the resilience phase alone (no result lines)
         _phase(f"resilience and tiers: {RESILIENCE_WORLD} gloo ranks on the card")
@@ -4368,6 +4650,11 @@ def main() -> int:
     _phase(f"compiled: the flagship, grouped report, regression, binned (B1 inside the graph) and 2-speaker audio "
            f"steps, {COMPILED_STEPS} steps eager and then with the compiled path (16 eager, then CUDA-graph replays)")
     _compiled_phase(smi, device)
+
+    _phase(f"analysis: metricslint over the package; the compiled configurations, {COMPILED_STEPS} steps each with "
+           "static pre-classification on and off; a class refuted from this file; the residual host read the "
+           "capture refuses; the host-sync list under the sync debug mode")
+    _analysis_phase(smi, device)
 
     _phase(f"fused step: compiled_step (update, in-program sync, compute as one CUDA graph) of the grouped report, "
            f"binned (B1 inside), regression and flagship collections, {FUSED_STEPS} steps each eager, with per-program "

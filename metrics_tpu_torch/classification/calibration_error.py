@@ -74,6 +74,7 @@ class CalibrationError(Metric):
     def compute(self) -> torch.Tensor:
         confidences = dim_zero_cat(self.confidences)
         accuracies = dim_zero_cat(self.accuracies)
-        # one host-to-device copy, at the first compute on a device
-        self.bin_boundaries = self.bin_boundaries.to(confidences.device)
-        return _ce_compute(confidences, accuracies, self.bin_boundaries, norm=self.norm)
+        # compute writes no attribute (the JAX metric sets the boundaries in
+        # __init__ alone): the device copy is local
+        bounds = self.bin_boundaries.to(confidences.device)
+        return _ce_compute(confidences, accuracies, bounds, norm=self.norm)

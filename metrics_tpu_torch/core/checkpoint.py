@@ -542,12 +542,18 @@ def save_checkpoint(
                 step = newest
             else:
                 step = newest + 1
-    manifest, writer = _build_snapshot(metric, step=step, rank=rank, world=world)
+    # the transitive record() under here is _refuse_snapshot's: refusal
+    # events are per-rank facts by design (each rank snapshots its own
+    # shard), like the save/load/prune events below
+    manifest, writer = _build_snapshot(metric, step=step, rank=rank, world=world)  # metricslint: disable=guarded-telemetry-emit
     path = os.path.join(_step_dir(directory, step), _shard_name(rank, world))
     _atomic_write(path, _pack(manifest, writer.segments))
     registry_of(metric).inc("checkpoint", "saves")
     if journal.ACTIVE:
-        journal.record(
+        # checkpoint events are per-rank facts by design: every rank writes
+        # its own shard, so the journal records this rank's save (cross-rank
+        # symmetry is a sync/collective contract, not a durability one)
+        journal.record(  # metricslint: disable=guarded-telemetry-emit
             "checkpoint.save", label=type(metric).__name__, step=step, rank=rank, world=world, bytes=writer.offset,
         )
     if keep_last is not None and rank == 0:
@@ -556,7 +562,8 @@ def save_checkpoint(
             # retention runs on rank 0 only: the event mirrors the deletion
             registry_of(metric).inc("checkpoint", "pruned_steps", by=len(pruned))
             if journal.ACTIVE:
-                journal.record("checkpoint.prune", label=type(metric).__name__, steps=",".join(map(str, pruned)))
+                journal.record(  # metricslint: disable=guarded-telemetry-emit
+                    "checkpoint.prune", label=type(metric).__name__, steps=",".join(map(str, pruned)))
     return path
 
 
@@ -1042,7 +1049,9 @@ def load_checkpoint(
             _apply_merge(metric, shard)
     registry_of(metric).inc("checkpoint", "loads")
     if journal.ACTIVE:
-        journal.record(
+        # per-rank by design: elastic resume assigns each rank its own shard
+        # stride, so the load event records this rank's fold
+        journal.record(  # metricslint: disable=guarded-telemetry-emit
             "checkpoint.load", label=type(metric).__name__, step=snap_step, rank=rank, world=world,
             shards=len(shards), checkpoint_world=ckpt_world,
         )

@@ -104,11 +104,15 @@ def compute_groups_enabled() -> bool:
 
 
 def _static_grouping_hazards(m: Metric) -> List[str]:
-    """Reasons a class's update provably breaks the grouping contract. The
-    JAX package reads them from its metricslint analysis; that pass is not
-    ported yet (ROADMAP A11), and this returns what the JAX package does with
-    the analysis off: none."""
-    return []
+    """metricslint validation of a compute-group candidate: reasons the
+    class's update provably breaks the grouping contract (writes an attr
+    that is neither an ``add_state`` state nor a declared
+    ``_group_shared_attrs`` latch). Empty when clean, unresolvable, or
+    pre-classification is disabled (``METRICS_TPU_ANALYSIS_PRECLASSIFY=0``).
+    Deterministic from source, so every rank plans the same partition."""
+    from metrics_tpu_torch.analysis.runtime import grouping_hazards
+
+    return grouping_hazards(m)
 
 
 def _leaf_concrete_equal(a: Any, b: Any) -> bool:
@@ -425,6 +429,19 @@ class MetricCollection(nn.ModuleDict):
                     "registered under several collection keys: a metric registered under several "
                     "keys updates once per key and cannot join a compute group."
                 )
+            for k, m in zip(keys, ms):
+                hazards = _static_grouping_hazards(m)
+                if hazards:
+                    # an explicit override is the user's promise, but the
+                    # static report refutes it with a concrete attr+line:
+                    # shared dispatch would skip that latch on every
+                    # non-dispatching sibling — refuse loudly
+                    raise MetricsTPUUserError(
+                        f"compute_groups override groups {keys}, but metricslint statically refutes "
+                        f"{k!r} ({type(m).__name__}) as a group member: " + "; ".join(hazards[:3])
+                        + ". Declare the attribute(s) in _group_shared_attrs (or with add_state), "
+                        "or remove the metric from the explicit group."
+                    )
             fp0, cfg0 = ms[0].state_fingerprint(), self._sync_config_key(ms[0])
             for k, m in zip(keys[1:], ms[1:]):
                 if m.state_fingerprint() != fp0:

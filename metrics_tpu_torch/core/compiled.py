@@ -358,11 +358,24 @@ def probe_traceable(fn: Callable, state: Any, dynamic: Sequence[torch.Tensor], o
 
 
 def consult_static(pairs) -> Tuple[str, Optional[str]]:
-    """The metricslint pre-classification of the JAX package. metricslint is
-    not ported yet (ROADMAP A11), so every verdict is ``"unknown"`` and the
-    runtime probe has the last word, as in the JAX package with
-    ``METRICS_TPU_ANALYSIS_PRECLASSIFY=0``."""
-    return "unknown", None
+    """metricslint pre-classification for an eligibility probe: aggregate
+    ``(metric, kinds)`` pairs into ``("clean"|"dirty"|"unknown", detail)``.
+
+    ``clean`` means every instance's class was statically verified (writes
+    only declared states, no host-sync antipatterns, fully resolved scan):
+    :func:`probe_traceable` is redundant and is skipped. A host read the
+    analysis cannot see is then found by the CUDA graph capture, which
+    raises before anything ran: :class:`CaptureError` marks the fallback and
+    the states stay intact. ``dirty`` means the static report *refuted*
+    eligibility — ``detail`` names the offending attribute and source line.
+    ``unknown`` (unresolvable source, dynamic writes,
+    ``METRICS_TPU_ANALYSIS_PRECLASSIFY=0``) keeps the probe as the last word.
+    Pre-classification only decides whether the probe runs: what a program
+    computes, and which kernel it launches, never depends on it.
+    """
+    from metrics_tpu_torch.analysis.runtime import static_probe_verdict_many
+
+    return static_probe_verdict_many(pairs)
 
 
 # ---------------------------------------------------------------------------

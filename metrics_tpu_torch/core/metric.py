@@ -1318,8 +1318,9 @@ class Metric(nn.Module):
                 out[name] = a.merge(b)
             elif isinstance(b, CatBuffer):
                 # merging INTO a list state loses the overflow flag, so a
-                # corrupt buffer must fail here, loudly
-                if b.overflowed:
+                # corrupt buffer must fail here, loudly; the flag is a host
+                # bool (CatBuffer.overflowed), never a read of the device
+                if b.overflowed:  # metricslint: disable=host-sync-in-update
                     raise MetricsTPUUserError(
                         f"State {name!r} holds a CatBuffer that overflowed inside "
                         "jit: its rows are corrupt and cannot be merged into a "

@@ -196,7 +196,13 @@ def sync_leaf_in_jit(value: torch.Tensor, fx: ReduceFx, axis_name: Any) -> torch
     raise ValueError(f"Unknown dist_reduce_fx {fx!r}")
 
 
-def sync_in_jit(
+# metricslint: the empty-list skip below branches on per-rank data before
+# emitting collectives. That is legal ONLY here: every rank runs the same
+# program over the same schema (the docstring's contract), empty lists
+# included, as SPMD guarantees the JAX package's traced program; the host
+# path (host_sync_state) verifies exactly that with the health header before
+# its own collectives.
+def sync_in_jit(  # metricslint: disable=data-dependent-collective
     state: Dict[str, Any], reductions: Dict[str, ReduceFx], axis_name: Any, fused: bool = False
 ) -> Dict[str, Any]:
     """Sync a whole state dict over ``axis_name`` inside a program (or
@@ -493,7 +499,13 @@ def check_on_missing(on_missing: str, group: Optional[Any] = None) -> str:
     return on_missing
 
 
-def host_sync_state(
+# metricslint: the channel-suspect refusal below deliberately trades schedule
+# symmetry for safety AFTER a watchdog already fired: collective ordering is
+# known-poisoned at that point (the timed-out rank may still sit inside its
+# stale gather), so refusing to emit anything further — even though the latch
+# is per-process state — is strictly safer than emitting a collective that
+# could pair with the abandoned one. reset_channel_health() restores symmetry.
+def host_sync_state(  # metricslint: disable=data-dependent-collective
     state: Dict[str, Any],
     reductions: Dict[str, ReduceFx],
     group: Optional[Any] = None,
@@ -603,8 +615,9 @@ def host_sync_state(
                 raise
             # every survivor negotiated the same membership: the header of
             # the second attempt verifies it, its gathers run over the
-            # survivors alone
-            synced = attempt()
+            # survivors alone. Safe in a handler: negotiate_quorum already
+            # re-established symmetry
+            synced = attempt()  # metricslint: disable=collective-in-handler
     if gate == "probe":
         resilience.channel_probe_succeeded()
     return synced

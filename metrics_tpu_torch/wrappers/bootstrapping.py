@@ -65,6 +65,13 @@ class BootStrapper(Metric):
         0.01
     """
 
+    #: ``update`` advances the resampling PRNG key, an instance-attribute
+    #: side effect declared as the JAX package declares it, so metricslint and
+    #: the compute-group/compiled machinery know about the latch. The wrapper
+    #: never joins a compute group (no ``update_identity``) and declares no
+    #: states, so no program compiles it either.
+    _group_shared_attrs = ("_key",)
+
     def __init__(
         self,
         base_metric: Metric,

@@ -506,7 +506,12 @@ def test_untraceable_update_probe_fallback_one_time_diagnostic():
 
 
 @pytest.mark.parametrize("latch", ["attribute", "container"])
-def test_undeclared_latch_probe_fallback(latch):
+def test_undeclared_latch_probe_fallback(latch, monkeypatch):
+    # the probe's own finding, with the static pre-classification off (as the
+    # JAX suite's test_undeclared_latch_probe_fallback_without_preclassification):
+    # with it on, LatchMetric is refuted statically before the probe
+    # (tests/test_torch_analysis_runtime.py)
+    monkeypatch.setenv("METRICS_TPU_ANALYSIS_PRECLASSIFY", "0")
     class AppendingMetric(Metric):
         def __init__(self):
             super().__init__(device="cpu")
