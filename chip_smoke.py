@@ -5,6 +5,7 @@
     python3 chip_smoke.py --compiled-only   # build, then the compiled phase alone
     python3 chip_smoke.py --resilience-only   # build, then the resilience phase alone
     python3 chip_smoke.py --analysis-only   # build, then the metricslint phase alone
+    python3 chip_smoke.py --examples-only   # build, then the examples phase alone
 
 Every phase prints its collections' ``compile_stats()``: after 16 eager
 steps the compiled hot path (``core/compiled.py``) replays a metric's
@@ -176,6 +177,18 @@ compiled step, the steady steps, states ``torch.equal``, B1's launches), a
 class refuted from this file before any capture, a host read the analysis
 cannot see that the CUDA graph capture refuses, and the host-sync list under
 ``torch.cuda.set_sync_debug_mode("error")`` and capture.
+
+After the resilience phase comes the examples phase (``--examples-only``
+runs the build and it alone): the three ``examples/torch_*.py`` through
+their own entry points, imported by file path. The train loop at the JAX
+example's size on the CPU, on the card op by op and on the card as one CUDA
+graph a step (forward, loss, backward, ``Adam(capturable=True)`` and both
+``pure_update`` calls), per-epoch values held against the CPU run, step ms,
+kernels and ``cudaGraphLaunch`` a step; the sharded eval over a one-rank
+NCCL group against one collection within 1e-6; own-model BERTScore against
+the CPU; ``inception_v3_init``/``lpips_init`` drawn on the card against the
+CPU draw (4 ulps), and the JAX suite's golden FID, KID and LPIPS cases on
+the card.
 
 Any failed check raises, and the script then exits non-zero without the last
 line. Without CUDA it exits with code 2 and prints no result.
@@ -3993,6 +4006,263 @@ def _in_graph_sync_phase(device):
 
 
 # ---------------------------------------------------------------------------
+# the examples as entry points, and the default towers
+# ---------------------------------------------------------------------------
+
+EXAMPLE_EPOCHS, EXAMPLE_STEPS, EXAMPLE_BATCH = 2, 8, 64  # the JAX example's run_training()
+EXAMPLE_TIMED_STEPS = 48  # a timing run: 16 steps of warm-up, the median of the last 32
+EXAMPLE_PROFILE_STEPS = 8
+#: Train loop, card against CPU: each epoch's mean loss within 1e-4
+#: relative (float32 GEMMs and Adam updates in another order, carried over
+#: 16 steps; the CPU run is within 2.4e-6 of the JAX example), accuracies
+#: within one sample of an epoch's 512.
+EXAMPLE_LOSS_RTOL = 1e-4
+#: Own-model BERTScore, card against CPU: values of size <= 1 from float32
+#: attention over 6 tokens of width 4 (as the port's CPU test against JAX).
+EXAMPLE_BERT_ATOL = 1e-5
+#: The JAX suite's golden pins (``tests/test_golden_pipeline_scores.py``) and
+#: their rtol: the 64-tap streaming FID and LPIPS(alex) of the default towers.
+GOLDEN_FID_STREAMING, GOLDEN_FID_RTOL = 0.002359572798013687, 2e-3
+GOLDEN_LPIPS, GOLDEN_LPIPS_RTOL = 0.13386474549770355, 1e-3
+GOLDEN_KID_RTOL = 5e-3
+TOWER_ULPS = 4  # a float32 normal of ops/prng.py on two devices (log1p, sqrt may round apart)
+
+
+def _example(filename):
+    """An example module by its file path (the card's machine has a foreign
+    ``tests`` package on its path, and ``examples/`` is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples", filename)
+    spec = importlib.util.spec_from_file_location("example_" + filename[:-3], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _max_ulps(a, b):
+    def ordered(t):
+        i = t.detach().cpu().contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return max(int((ordered(a[k]) - ordered(b[k])).abs().max()) for k in b if b[k].numel())
+
+
+def _train_step_stats(tl, device, graph):
+    """A fresh trainer at the example's size, ``EXAMPLE_TIMED_STEPS`` steps
+    on the task's batches (host clock, each ending in a synchronize), then
+    ``EXAMPLE_PROFILE_STEPS`` more under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer = tl.Trainer(seed=1, batch_size=EXAMPLE_BATCH, device=device, graph=graph)
+    steps = EXAMPLE_TIMED_STEPS + EXAMPLE_PROFILE_STEPS
+    batches = [(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+               for x, y in tl.task_batches(1, steps, EXAMPLE_BATCH, 1)]
+    trainer.start_epoch()
+    torch.cuda.synchronize()
+    step_ms = []
+    for x, y in batches[:EXAMPLE_TIMED_STEPS]:
+        t0 = time.perf_counter()
+        trainer.step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for x, y in batches[EXAMPLE_TIMED_STEPS:]:
+            trainer.step(x, y)
+        torch.cuda.synchronize()
+    stats = _profile_counts(prof, EXAMPLE_PROFILE_STEPS)
+    stats["median_ms"] = float(np.median(step_ms[16:]))
+    stats["first_ms"] = step_ms[0]
+    values = trainer.end_epoch()
+    assert all(np.isfinite(v) for v in values.values()), values
+    return stats
+
+
+def _fid64(real, fake):
+    """FID of two feature sets in float64 on the host (numpy, scipy's sqrtm)."""
+    import scipy.linalg
+
+    real, fake = real.double().cpu().numpy(), fake.double().cpu().numpy()
+    c1, c2 = np.cov(real, rowvar=False), np.cov(fake, rowvar=False)
+    diff = real.mean(0) - fake.mean(0)
+    return float(diff @ diff + np.trace(c1) + np.trace(c2) - 2 * np.trace(scipy.linalg.sqrtm(c1 @ c2).real))
+
+
+def _kid64(real, fake, idx_real, idx_fake):
+    """KID mean and population std in float64 on the host over the given
+    subsets (cubic polynomial kernel, unbiased MMD)."""
+    def k(a, b):
+        return (a @ np.swapaxes(b, -1, -2) / a.shape[-1] + 1.0) ** 3
+
+    x = real.double().cpu().numpy()[idx_real.cpu().numpy()]
+    y = fake.double().cpu().numpy()[idx_fake.cpu().numpy()]
+    m = x.shape[1]
+    off = lambda t: t.sum((-2, -1)) - np.trace(t, axis1=-2, axis2=-1)  # noqa: E731
+    mmd = (off(k(x, x)) + off(k(y, y))) / (m * (m - 1)) - 2 * k(x, y).sum((-2, -1)) / m**2
+    return float(mmd.mean()), float(mmd.std())
+
+
+def _kid32_bound(real, fake, idx_real, idx_fake):
+    """A first-order bound, from this run's features, on a float32 KID's
+    distance from its float64 value, for the mean and for the std.
+
+    Each kernel entry ``k = (g s + 1)^3`` (``g = 1 / D``) takes a float32
+    dot ``s`` of D products, off by at most ``D eps sum|x_d y_d|``, then
+    four roundings: ``|dk| <= 3 (g|s| + 1)^2 g (D + 4) eps sum|x y| + 4 eps
+    |k|``. A subset's MMD is two off-diagonal means and a full mean of the
+    entries (``|dk|`` averaged as they are), plus the summation of ``m^2``
+    entries (``2 log2(m) eps`` of each mean of ``|k|``). The mean over
+    subsets is off by at most the largest subset's bound, the population
+    std by twice it."""
+    eps = 2.0 ** -24
+    x = real.double().cpu().numpy()[idx_real.cpu().numpy()]
+    y = fake.double().cpu().numpy()[idx_fake.cpu().numpy()]
+    d, m = x.shape[-1], x.shape[1]
+    g = 1.0 / d
+
+    def entry_err(a, b):
+        s = a @ np.swapaxes(b, -1, -2)
+        s_abs = np.abs(a) @ np.swapaxes(np.abs(b), -1, -2)
+        k = np.abs(g * s + 1.0) ** 3
+        dk = 3 * (g * np.abs(s) + 1.0) ** 2 * g * (d + 4) * eps * s_abs + 4 * eps * k
+        return dk, k
+
+    def off_mean(t):
+        return (t.sum((-2, -1)) - np.trace(t, axis1=-2, axis2=-1)) / (m * (m - 1))
+
+    (dxx, kxx), (dyy, kyy), (dxy, kxy) = entry_err(x, x), entry_err(y, y), entry_err(x, y)
+    per_subset = (off_mean(dxx) + off_mean(dyy) + 2 * dxy.mean((-2, -1))
+                  + 2 * np.log2(m) * eps * (off_mean(kxx) + off_mean(kyy) + 2 * kxy.mean((-2, -1))))
+    worst = float(per_subset.max())
+    return worst, 2 * worst
+
+
+def _examples_phase(smi, device):
+    """The three examples through their own entry points, and the default
+    towers. (a) The train loop (``examples/torch_train_loop_integration.py``)
+    at the JAX example's size on the CPU, on the card op by op and on the
+    card as one CUDA graph a step: per-epoch values equal within
+    ``EXAMPLE_LOSS_RTOL`` and one sample; step ms, kernels and
+    ``cudaGraphLaunch`` a step of each mode. (b) The sharded eval over a
+    one-rank NCCL group (``pure_sync``'s in-program collectives) against
+    one collection within 1e-6. (c) Own-model BERTScore, card against CPU.
+    (d) ``inception_v3_init``/``lpips_init`` drawn on the card within
+    ``TOWER_ULPS`` of the CPU draw; the JAX suite's 64-tap FID, KID and
+    LPIPS golden cases on the card within the pins' rtol (the buffered FID
+    and a float64 KID of the float64 values, as
+    ``tests/test_torch_golden_pipeline_scores.py``), the default float32
+    KID within the bound ``_kid32_bound`` derives from the features."""
+    from metrics_tpu_torch import FID, KID, LPIPS
+    from metrics_tpu_torch.models.inception import InceptionFeatureExtractor, inception_v3_init
+    from metrics_tpu_torch.models.lpips_net import lpips_init
+    from metrics_tpu_torch.ops import binned_stats
+
+    binned_stats.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    tl = _example("torch_train_loop_integration.py")
+    size = dict(num_epochs=EXAMPLE_EPOCHS, steps_per_epoch=EXAMPLE_STEPS, batch_size=EXAMPLE_BATCH)
+    want = tl.run_training(device="cpu", **size)
+    one_sample = 1.0 / (EXAMPLE_STEPS * EXAMPLE_BATCH)
+    for mode, graph in (("eager", False), ("graph", True)):
+        got = tl.run_training(device=device, graph=graph, **size)
+        for epoch, (g, w) in enumerate(zip(got, want)):
+            rel = abs(g["loss"] - w["loss"]) / abs(w["loss"])
+            assert rel <= EXAMPLE_LOSS_RTOL, f"train loop ({mode}) epoch {epoch}: loss {g['loss']} vs CPU {w['loss']}"
+            for k in ("acc", "macro_acc"):
+                assert abs(g[k] - w[k]) <= one_sample, f"train loop ({mode}) epoch {epoch}: {k} {g[k]} vs CPU {w[k]}"
+        print(f"train loop ({mode}) on the card: " + "; ".join(
+            f"epoch {i} " + ", ".join(f"{k}={v:.6f}" for k, v in e.items()) for i, e in enumerate(got))
+              + f"; equal to the CPU run within rtol {EXAMPLE_LOSS_RTOL} (loss) and one sample (accuracies)")
+    stats = {mode: _train_step_stats(tl, device, graph) for mode, graph in
+             (("eager", False), ("graph", True), ("graph", True), ("eager", False))}  # in turns; the second kept
+    assert stats["graph"]["graph_launches_per_step"] == 1.0, stats["graph"]
+    assert stats["eager"]["graph_launches_per_step"] == 0.0, stats["eager"]
+    for mode, st in stats.items():
+        print(f"train step ({mode}; forward, cross-entropy, backward, Adam, Accuracy x2 + AverageMeter "
+              f"pure_update; batch {EXAMPLE_BATCH}) on {smi}: median {st['median_ms']:.4f} ms (steps 17-"
+              f"{EXAMPLE_TIMED_STEPS}, host clock), first step {st['first_ms']:.2f} ms, {st['kernels_per_step']} "
+              f"kernels/step, {st['graph_launches_per_step']} cudaGraphLaunch/step, {st['syncs_per_step']} "
+              f"cudaStreamSynchronize/step, device busy {st['busy_ms']} ms/step")
+    print(f"train step graph / eager: {stats['graph']['median_ms'] / stats['eager']['median_ms']:.4f}")
+    train_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    se = _example("torch_sharded_eval.py")
+    values = se.main(["--device", "cuda", "--world", "1"])
+    errs = se.check(values, se.reference(1, device))
+    print(f"sharded eval over a one-rank NCCL group (pure_update x{se.BATCHES}, pure_sync, pure_compute): "
+          f"{values}; max abs err against one collection {errs} (bound {se.ATOL})")
+    sharded_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bs = _example("torch_bert_score_own_model.py")
+    got, want = bs.run(device), bs.run("cpu")
+    bert_err = max(float(np.max(np.abs(np.asarray(got[k], np.float64) - np.asarray(want[k], np.float64))))
+                   for k in ("precision", "recall", "f1"))
+    assert bert_err <= EXAMPLE_BERT_ATOL, f"own-model BERTScore card vs CPU: {bert_err}"
+    print(f"own-model BERTScore on the card: f1 {[round(float(v), 6) for v in got['f1']]}; max abs err against "
+          f"the CPU {bert_err:.3g} (bound {EXAMPLE_BERT_ATOL})")
+    bert_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ulps = {"inception_v3_init": _max_ulps(inception_v3_init(device=device), inception_v3_init(device="cpu"))}
+    for net in ("alex", "vgg"):
+        ulps[f"lpips_init({net})"] = _max_ulps(lpips_init(net, device=device), lpips_init(net, device="cpu"))
+    assert all(u <= TOWER_ULPS for u in ulps.values()), ulps
+    rng = np.random.RandomState(1234)
+    real = torch.from_numpy(rng.randint(0, 256, (24, 3, 64, 64), dtype=np.uint8)).to(device)
+    fake = torch.from_numpy(rng.randint(0, 256, (24, 3, 64, 64), dtype=np.uint8)).to(device)
+    ext = _quiet(lambda: InceptionFeatureExtractor(feature=64, device=device))
+    real_f, fake_f = ext(real), ext(fake)
+    golden = {}
+    for name, make in (("fid_streaming", lambda: FID(lambda f: f, feature_dim=64, streaming=True, device=device)),
+                       ("fid_buffered", lambda: FID(lambda f: f, feature_dim=64, device=device))):
+        m = make()
+        m.update(real_f, True)
+        m.update(fake_f, False)
+        golden[name] = float(m.compute())
+    kid = KID(lambda f: f, subsets=4, subset_size=16, device=device)
+    kid.update(real_f, True)
+    kid.update(fake_f, False)
+    golden["kid_mean"], golden["kid_std"] = (float(v) for v in kid.compute())
+    kid64_card = KID(lambda f: f, subsets=4, subset_size=16, device=device)
+    kid64_card.set_dtype(torch.float64)
+    kid64_card.update(real_f, True)
+    kid64_card.update(fake_f, False)
+    golden["kid_mean_f64"], golden["kid_std_f64"] = (float(v) for v in kid64_card.compute())
+    lp = _quiet(lambda: LPIPS(net_type="alex", device=device))
+    lp.update(torch.from_numpy(np.random.RandomState(5).rand(4, 3, 64, 64).astype(np.float32) * 2 - 1).to(device),
+              torch.from_numpy(np.random.RandomState(6).rand(4, 3, 64, 64).astype(np.float32) * 2 - 1).to(device))
+    golden["lpips"] = float(lp.compute())
+    subsets = kid.subset_indices(24, 24)
+    kid64 = _kid64(real_f, fake_f, *subsets)
+    want = {"fid_streaming": (GOLDEN_FID_STREAMING, GOLDEN_FID_RTOL),
+            "fid_buffered": (_fid64(real_f, fake_f), GOLDEN_FID_RTOL),
+            "kid_mean_f64": (kid64[0], GOLDEN_KID_RTOL), "kid_std_f64": (kid64[1], GOLDEN_KID_RTOL),
+            "lpips": (GOLDEN_LPIPS, GOLDEN_LPIPS_RTOL)}
+    rel = {k: abs(golden[k] - w) / abs(w) for k, (w, _) in want.items()}
+    for k, (w, rtol) in want.items():
+        assert rel[k] <= rtol, f"golden {k} on the card: {golden[k]} vs {w} (rtol {rtol})"
+    # the default float32 KID: ~5e-5 is a difference of kernel means of size
+    # ~2, so its float32 noise is a fraction of a percent of it: held to
+    # the bound derived from this run's features
+    kid_err = (abs(golden["kid_mean"] - kid64[0]), abs(golden["kid_std"] - kid64[1]))
+    kid_bound = _kid32_bound(real_f, fake_f, *subsets)
+    assert kid_err[0] <= kid_bound[0] and kid_err[1] <= kid_bound[1], (kid_err, kid_bound)
+    print(f"default towers drawn on the card vs the CPU, max ulps: {ulps}; golden cases on the card: "
+          + ", ".join(f"{k} {golden[k]!r} (rel err {rel[k]:.3g} of {want[k][0]!r}, rtol {want[k][1]})" for k in want)
+          + f"; float32 KID mean {golden['kid_mean']!r}, std {golden['kid_std']!r}: rel err {kid_err[0] / kid64[0]:.3g}"
+          f", {kid_err[1] / kid64[1]:.3g} of float64 (abs {kid_err[0]:.3g}, {kid_err[1]:.3g}; bound {kid_bound[0]:.3g}, "
+          f"{kid_bound[1]:.3g})")
+    towers_s = time.perf_counter() - t0
+    launches = binned_stats.KERNEL_LAUNCHES
+    print(f"examples phase: train loop {train_s:.1f} s, sharded eval {sharded_s:.1f} s, own-model BERTScore "
+          f"{bert_s:.1f} s, towers and golden cases {towers_s:.1f} s; B1 launches {launches} (no binned metric on "
+          "these paths)")
+    return {"train": stats, "golden": golden, "ulps": ulps, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # telemetry and wrappers
 # ---------------------------------------------------------------------------
 
@@ -4371,6 +4641,11 @@ def main() -> int:
         _phase(f"resilience and tiers: {RESILIENCE_WORLD} gloo ranks on the card")
         _resilience_phase(device)
         return 0
+    if "--examples-only" in sys.argv[1:]:
+        # the examples phase alone (no result lines)
+        _phase("examples: the train loop as one CUDA graph, the sharded eval, own-model BERTScore, default towers")
+        _examples_phase(smi, device)
+        return 0
     if "--fused-only" in sys.argv[1:]:
         # the fused-step, in-graph sync and overlap phases alone (no result lines)
         _phase("fused step: compiled_step against eager and per-program replay")
@@ -4679,6 +4954,11 @@ def main() -> int:
            "bf16 and int8 slow hops against the flat sync), probation after a straggler's watchdog, quorum after a "
            "rank leaves")
     _resilience_phase(device)
+
+    _phase(f"examples: the train loop ({EXAMPLE_EPOCHS} epochs x {EXAMPLE_STEPS} steps x {EXAMPLE_BATCH}) eager and "
+           "as one CUDA graph a step, the sharded eval over a one-rank NCCL group, own-model BERTScore; the default "
+           "Inception and LPIPS draws and the golden FID, KID and LPIPS cases on the card")
+    _examples_phase(smi, device)
 
     _phase("where a step's time goes (torch.profiler)")
     for name, make, ms_step in (("flagship", flagship, flagship_step_ms), ("binned", binned, binned_step_ms)):

@@ -40,10 +40,18 @@ class AverageMeter(Metric):
 
     def update(self, value: Union[torch.Tensor, float], weight: Union[torch.Tensor, float] = 1.0) -> None:  # type: ignore[override]
         """Add observations; ``weight`` broadcasts to ``value``'s shape."""
-        value = torch.as_tensor(value, dtype=torch.float32, device=self.device)
-        weight = torch.as_tensor(weight, dtype=torch.float32, device=self.device).broadcast_to(value.shape)
+        value = self._as_float32(value)
+        weight = self._as_float32(weight).broadcast_to(value.shape)
         self.value = self.value + torch.sum(value * weight)
         self.weight = self.weight + torch.sum(weight)
+
+    def _as_float32(self, x: Union[torch.Tensor, float]) -> torch.Tensor:
+        """``x`` as a float32 tensor on the metric's device; a Python number
+        as a fill there (no copy from the host, so a CUDA graph capture of a
+        step that updates the meter takes it)."""
+        if isinstance(x, (int, float)):
+            return torch.full((), x, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def compute(self) -> torch.Tensor:
         return self.value / self.weight

@@ -28,9 +28,11 @@ Batch norm is eval-mode with eps 1e-3, folded into each convolution. A
 float32 forward runs as true float32 whatever the caller's TF32 flags
 (``utils/device.py::full_float32``); ``dtype=torch.bfloat16`` runs the
 network in bfloat16 after float32 preprocessing, as the JAX package's
-``dtype=``. Without weights the network is drawn from a seeded
-``torch.Generator``: every metric mechanism is exact, but scores are not
-comparable with pretrained-Inception numbers.
+``dtype=``. Without weights the network is drawn as the JAX package draws
+it (:func:`inception_v3_init`, ``PRNGKey(0)`` through ``ops/prng.py``), so a
+default FID, KID or IS gives the JAX package's scores; every metric
+mechanism is exact, but scores are not comparable with pretrained-Inception
+numbers.
 """
 import contextlib
 from typing import Any, Dict, Iterator, Mapping, Optional, Sequence, Tuple, Union
@@ -40,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from metrics_tpu_torch.ops import prng
 from metrics_tpu_torch.utils.device import full_float32, resolve_device
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -262,40 +265,45 @@ class InceptionE(nn.Module):
         return torch.cat([b1, b3, bd, self.branch_pool(pool(x))], dim=1)
 
 
+def _layers(num_classes: int) -> Dict[str, nn.Module]:
+    """The network's layers in torchvision's order, which is also the order
+    of the JAX package's ``split``s: the stem, the mixed blocks (each
+    block's convolutions in its own split order), the head."""
+    return {
+        "Conv2d_1a_3x3": BasicConv2d(3, 32, 3, stride=2),
+        "Conv2d_2a_3x3": BasicConv2d(32, 32, 3),
+        "Conv2d_2b_3x3": BasicConv2d(32, 64, 3, padding=1),
+        "Conv2d_3b_1x1": BasicConv2d(64, 80, 1),
+        "Conv2d_4a_3x3": BasicConv2d(80, 192, 3),
+        "Mixed_5b": InceptionA(192, 32),
+        "Mixed_5c": InceptionA(256, 64),
+        "Mixed_5d": InceptionA(288, 64),
+        "Mixed_6a": InceptionB(288),
+        "Mixed_6b": InceptionC(768, 128),
+        "Mixed_6c": InceptionC(768, 160),
+        "Mixed_6d": InceptionC(768, 160),
+        "Mixed_6e": InceptionC(768, 192),
+        "Mixed_7a": InceptionD(768),
+        "Mixed_7b": InceptionE(1280),
+        "Mixed_7c": InceptionE(2048),
+        "fc": nn.Linear(2048, num_classes),
+    }
+
+
 class InceptionV3(nn.Module):
     """Inception-v3 in torchvision's layout (no aux head), torch-fidelity's
-    1008-logit head by default. Weights are drawn from ``generator`` (a
-    seeded CPU ``torch.Generator``; seed 0 when ``None``): conv kernels
-    normal with std sqrt(2 / fan_in), the head normal × 0.01, norms at
-    identity, as the JAX package's ``inception_v3_init``."""
+    1008-logit head by default, with the weights of
+    :func:`inception_v3_init` drawn from ``key`` (a
+    :func:`~metrics_tpu_torch.ops.prng.prng_key`; ``PRNGKey(0)`` on the
+    host when ``None``), on the key's device."""
 
-    def __init__(self, num_classes: int = 1008, generator: Optional[torch.Generator] = None) -> None:
+    def __init__(self, num_classes: int = 1008, key: Optional[torch.Tensor] = None) -> None:
         super().__init__()
-        self.Conv2d_1a_3x3 = BasicConv2d(3, 32, 3, stride=2)
-        self.Conv2d_2a_3x3 = BasicConv2d(32, 32, 3)
-        self.Conv2d_2b_3x3 = BasicConv2d(32, 64, 3, padding=1)
-        self.Conv2d_3b_1x1 = BasicConv2d(64, 80, 1)
-        self.Conv2d_4a_3x3 = BasicConv2d(80, 192, 3)
-        self.Mixed_5b = InceptionA(192, 32)
-        self.Mixed_5c = InceptionA(256, 64)
-        self.Mixed_5d = InceptionA(288, 64)
-        self.Mixed_6a = InceptionB(288)
-        self.Mixed_6b = InceptionC(768, 128)
-        self.Mixed_6c = InceptionC(768, 160)
-        self.Mixed_6d = InceptionC(768, 160)
-        self.Mixed_6e = InceptionC(768, 192)
-        self.Mixed_7a = InceptionD(768)
-        self.Mixed_7b = InceptionE(1280)
-        self.Mixed_7c = InceptionE(2048)
-        self.fc = nn.Linear(2048, num_classes)
-        gen = generator if generator is not None else torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * float(np.sqrt(2.0 / fan_in)))
-            self.fc.weight.copy_(torch.randn(self.fc.weight.shape, generator=gen) * 0.01)
-            self.fc.bias.zero_()
+        key = prng.prng_key(0) if key is None else key
+        with torch.device("meta"):  # the draw below is the only init
+            for name, layer in _layers(num_classes).items():
+                setattr(self, name, layer)
+        self.load_state_dict(_draw(dict(self.named_children()), key), assign=True)
         self.requires_grad_(False)
         self.eval()
 
@@ -341,6 +349,57 @@ class InceptionV3(nn.Module):
         return out
 
 
+def _draw(layers: Mapping[str, nn.Module], key: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``inception_v3_init`` draw for ``layers`` (only
+    their shapes are read), on the key's device: ``split(key, 20)``, one key
+    a stem convolution or a block, a block's key split once per
+    convolution; each kernel drawn ``(kh, kw, cin, cout)`` with std
+    sqrt(2 / fan_in), batch norms at identity; the head ``(2048, C)`` times
+    0.01 from the key after the last block."""
+    device = key.device
+
+    def conv(k: torch.Tensor, m: BasicConv2d) -> Dict[str, torch.Tensor]:
+        cout, cin, kh, kw = m.conv.weight.shape
+        kernel = prng.normal(k, (kh, kw, cin, cout)) * float(np.sqrt(2.0 / (cin * kh * kw)))
+        ones, zeros = (lambda: torch.ones(cout, device=device)), (lambda: torch.zeros(cout, device=device))
+        return {"kernel": kernel, "bn_scale": ones(), "bn_bias": zeros(), "bn_mean": zeros(), "bn_var": ones()}
+
+    keys = prng.split(key, 20)
+    body = [(name, layer) for name, layer in layers.items() if name != "fc"]
+    params: Dict[str, Any] = {}
+    for i, (name, layer) in enumerate(body):
+        if isinstance(layer, BasicConv2d):
+            params[name] = conv(keys[i], layer)
+        else:
+            branches = list(layer.named_children())
+            sub = prng.split(keys[i], len(branches))
+            params[name] = {branch: conv(sub[j], m) for j, (branch, m) in enumerate(branches)}
+    num_classes = layers["fc"].weight.shape[0]
+    params["fc"] = {"weight": prng.normal(keys[len(body)], (2048, num_classes)) * 0.01,
+                    "bias": torch.zeros(num_classes, device=device)}
+    return _state_dict_from_tree(params)
+
+
+def inception_v3_init(
+    key: Optional[torch.Tensor] = None,
+    num_classes: int = 1008,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``inception_v3_init(key, num_classes)`` weights as
+    an :class:`InceptionV3` state dict: ``split(key, 20)``, then each
+    block's own split; each kernel drawn ``(kh, kw, cin, cout)`` with std
+    sqrt(2 / fan_in) and transposed, the head ``(2048, C)`` times 0.01,
+    batch norms at identity. ``key`` is a
+    :func:`~metrics_tpu_torch.ops.prng.prng_key`; ``PRNGKey(0)`` when
+    ``None``. Drawn on ``device`` (``None`` means CUDA). A float32 draw is
+    within 4 ulps of JAX's (``ops/prng.py::normal``)."""
+    device = resolve_device(device)
+    key = prng.prng_key(0, device=device) if key is None else key.to(device)
+    with torch.device("meta"):
+        layers = _layers(num_classes)
+    return _draw(layers, key)
+
+
 def load_torch_inception_weights(model: InceptionV3, source: Any) -> InceptionV3:
     """Load a torchvision ``inception_v3`` or torch-fidelity ``pt_inception``
     state dict (or the path of one) into ``model``, in place. Keys the model
@@ -361,33 +420,43 @@ def load_torch_inception_weights(model: InceptionV3, source: Any) -> InceptionV3
     return model
 
 
-def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX package's Inception params pytree (``inception_v3_init``,
-    ``load_torch_inception_weights``; arrays or numpy) as this module's
-    state dict: HWIO kernels to OIHW, the head's ``[2048, C]`` weight
-    transposed."""
+def _state_dict_from_tree(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """An Inception params tree in the JAX package's layout (torch tensors)
+    as this module's state dict: HWIO kernels to OIHW, the head's
+    ``[2048, C]`` weight transposed."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def t(a: Any) -> torch.Tensor:
-        return torch.from_numpy(np.array(a, dtype=np.float32))
-
-    def conv(prefix: str, p: Mapping[str, Any]) -> None:
-        sd[f"{prefix}.conv.weight"] = t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
-        sd[f"{prefix}.bn.weight"] = t(p["bn_scale"])
-        sd[f"{prefix}.bn.bias"] = t(p["bn_bias"])
-        sd[f"{prefix}.bn.running_mean"] = t(p["bn_mean"])
-        sd[f"{prefix}.bn.running_var"] = t(p["bn_var"])
+    def conv(prefix: str, p: Mapping[str, torch.Tensor]) -> None:
+        sd[f"{prefix}.conv.weight"] = p["kernel"].permute(3, 2, 0, 1).contiguous()
+        sd[f"{prefix}.bn.weight"] = p["bn_scale"]
+        sd[f"{prefix}.bn.bias"] = p["bn_bias"]
+        sd[f"{prefix}.bn.running_mean"] = p["bn_mean"]
+        sd[f"{prefix}.bn.running_var"] = p["bn_var"]
 
     for name, sub in params.items():
         if name == "fc":
-            sd["fc.weight"] = t(np.asarray(sub["weight"]).T)
-            sd["fc.bias"] = t(sub["bias"])
+            sd["fc.weight"] = sub["weight"].T.contiguous()
+            sd["fc.bias"] = sub["bias"]
         elif "kernel" in sub:
             conv(name, sub)
         else:
             for branch, p in sub.items():
                 conv(f"{name}.{branch}", p)
     return sd
+
+
+def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's Inception params pytree (``inception_v3_init``,
+    ``load_torch_inception_weights``; arrays or numpy) as this module's
+    state dict, float32 on the host: HWIO kernels to OIHW, the head's
+    ``[2048, C]`` weight transposed."""
+
+    def to_torch(tree: Any) -> Any:
+        if isinstance(tree, Mapping):
+            return {k: to_torch(v) for k, v in tree.items()}
+        return torch.from_numpy(np.array(tree, dtype=np.float32))
+
+    return _state_dict_from_tree(to_torch(params))
 
 
 class InceptionFeatureExtractor(nn.Module):
@@ -417,7 +486,8 @@ class InceptionFeatureExtractor(nn.Module):
             raise ValueError(f"unknown inception feature tap {feature!r}; use one of {TAPS}")
         # fail at construction, not at the first update of an eval pass
         self.variant = _check_variant(variant)
-        self.net = InceptionV3()
+        device = resolve_device(device)
+        self.net = InceptionV3(key=prng.prng_key(0, device=device))
         if weights is not None:
             load_torch_inception_weights(self.net, weights)
             num_classes = self.net.fc.weight.shape[0]
@@ -444,7 +514,7 @@ class InceptionFeatureExtractor(nn.Module):
                 " (or, with variant='torchvision', a torchvision) inception"
                 " checkpoint for parity."
             )
-        self.net.to(device=resolve_device(device), dtype=dtype)
+        self.net.to(device=device, dtype=dtype)
 
     @property
     def dtype(self) -> torch.dtype:

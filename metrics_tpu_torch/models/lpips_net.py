@@ -8,8 +8,9 @@ keys), averaged over space and summed over taps. Tower weights load from a
 torchvision ``alexnet``/``vgg16`` state dict and heads from an ``lpips``
 checkpoint (:func:`load_torch_lpips_weights`); the JAX package's params
 carry across with :func:`params_from_jax`. Without weights the network is
-drawn from a seeded ``torch.Generator`` (scores then are not comparable with
-published LPIPS numbers). The forward runs as true float32
+drawn as the JAX package draws it (:func:`lpips_init`, ``PRNGKey(0)``), so
+a default network gives the JAX package's distances; scores then are not
+comparable with published LPIPS numbers. The forward runs as true float32
 (``utils/device.py::full_float32``).
 """
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from metrics_tpu_torch.ops import prng
 from metrics_tpu_torch.utils.device import full_float32, resolve_device
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -105,8 +107,8 @@ class LPIPSNetwork(nn.Module):
     Args:
         net: 'alex' | 'vgg'.
         weights: ``(tower_state_dict, lin_state_dict)`` (either may be a
-            path; the heads may be ``None``); random weights from a
-            ``torch.Generator`` of seed 0 otherwise.
+            path; the heads may be ``None``); the random weights of
+            :func:`lpips_init` (``PRNGKey(0)``) otherwise.
         device: where the network lives; ``None`` means CUDA.
     """
 
@@ -116,21 +118,14 @@ class LPIPSNetwork(nn.Module):
         if net not in ("alex", "vgg"):
             raise ValueError(f"Argument `net_type` must be one of ('alex', 'vgg'), got {net}")
         self.net_type = net
-        self.net = LPIPSTower(net)
-        for k, d in enumerate(self.net.tap_dims):
-            setattr(self, f"lin{k}", _LinHead(d))
+        device = resolve_device(device)
+        with torch.device("meta"):  # the draw below is the only init
+            self.net = LPIPSTower(net)
+            for k, d in enumerate(self.net.tap_dims):
+                setattr(self, f"lin{k}", _LinHead(d))
         self.register_buffer("shift", torch.from_numpy(_SHIFT).view(1, 3, 1, 1), persistent=False)
         self.register_buffer("scale", torch.from_numpy(_SCALE).view(1, 3, 1, 1), persistent=False)
-        gen = torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            for m in self.net.features:
-                if isinstance(m, nn.Conv2d):
-                    fan_in = m.weight[0].numel()
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * float(np.sqrt(2.0 / fan_in)))
-                    m.bias.zero_()
-            for lin in self.lins:
-                w = lin.model[1].weight
-                w.copy_(torch.abs(torch.randn(w.shape, generator=gen)) * 0.1)
+        self.load_state_dict(lpips_init(net, device=device), assign=True)
         if weights is not None:
             load_torch_lpips_weights(self, *weights)
         else:
@@ -141,7 +136,7 @@ class LPIPSNetwork(nn.Module):
             )
         self.requires_grad_(False)
         self.eval()
-        self.to(resolve_device(device))
+        self.to(device)
 
     @property
     def lins(self) -> List[_LinHead]:
@@ -192,16 +187,60 @@ def load_torch_lpips_weights(model: LPIPSNetwork, tower_state_dict: Any,
     return model
 
 
+def _state_dict_from_tree(params: Mapping[str, Any], net: str) -> Dict[str, torch.Tensor]:
+    """LPIPS params in the JAX package's layout (torch tensors) as an
+    :class:`LPIPSNetwork` state dict: HWIO kernels to OIHW, heads to
+    ``[1, D, 1, 1]``."""
+    sd: Dict[str, torch.Tensor] = {}
+    with torch.device("meta"):  # the layout only
+        indices = LPIPSTower(net).conv_indices()
+    for i, p in zip(indices, params["convs"]):
+        sd[f"net.features.{i}.weight"] = p["kernel"].permute(3, 2, 0, 1).contiguous()
+        sd[f"net.features.{i}.bias"] = p["bias"]
+    for k, lin in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = lin.reshape(1, -1, 1, 1)
+    return sd
+
+
+def lpips_init(net: str = "alex", key: Optional[torch.Tensor] = None,
+               device: Optional[Union[str, torch.device]] = None) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``lpips_init(net, key)`` weights as an
+    :class:`LPIPSNetwork` state dict: one ``split`` per convolution, its
+    kernel drawn ``(k, k, cin, cout)`` with std sqrt(2 / fan_in) and
+    transposed, zero biases; then one ``split`` whose second key splits
+    into the heads, each ``|normal| * 0.1``. ``key`` is a
+    :func:`~metrics_tpu_torch.ops.prng.prng_key`; ``PRNGKey(0)`` when
+    ``None``. Drawn on ``device`` (``None`` means CUDA). A float32 draw is
+    within 4 ulps of JAX's (``ops/prng.py::normal``)."""
+    cfg, taps = _tower_cfg(net)
+    device = resolve_device(device)
+    key = prng.prng_key(0, device=device) if key is None else key.to(device)
+    convs: List[Dict[str, torch.Tensor]] = []
+    tap_dims: List[int] = []
+    cin = 3
+    for item in cfg:
+        if isinstance(item, str):
+            continue
+        cout, size = item[0], item[1]
+        key, sub = prng.split(key)
+        convs.append({"kernel": prng.normal(sub, (size, size, cin, cout)) * float(np.sqrt(2.0 / (cin * size * size))),
+                      "bias": torch.zeros(cout, device=device)})
+        if len(convs) - 1 in taps:
+            tap_dims.append(cout)
+        cin = cout
+    _, sub = prng.split(key)
+    lins = [torch.abs(prng.normal(k, (d,))) * 0.1 for k, d in zip(prng.split(sub, len(tap_dims)), tap_dims)]
+    return _state_dict_from_tree({"convs": convs, "lins": lins}, net)
+
+
 def params_from_jax(params: Mapping[str, Any], net: str = "alex") -> Dict[str, torch.Tensor]:
     """The JAX package's LPIPS params (``lpips_init``: ``{"convs": [{kernel,
     bias}], "lins": [[D]]}``, arrays or numpy) as an :class:`LPIPSNetwork`
-    state dict: HWIO kernels to OIHW, heads to ``[1, D, 1, 1]``."""
-    indices = LPIPSTower(net).conv_indices()
-    sd: Dict[str, torch.Tensor] = {}
-    for i, p in zip(indices, params["convs"]):
-        sd[f"net.features.{i}.weight"] = torch.from_numpy(np.array(np.asarray(p["kernel"]).transpose(3, 2, 0, 1),
-                                                                   dtype=np.float32))
-        sd[f"net.features.{i}.bias"] = torch.from_numpy(np.array(p["bias"], dtype=np.float32))
-    for k, lin in enumerate(params["lins"]):
-        sd[f"lin{k}.model.1.weight"] = torch.from_numpy(np.array(lin, dtype=np.float32)).reshape(1, -1, 1, 1)
-    return sd
+    state dict, float32 on the host: HWIO kernels to OIHW, heads to
+    ``[1, D, 1, 1]``."""
+
+    def t(a: Any) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+
+    convs = [{"kernel": t(p["kernel"]), "bias": t(p["bias"])} for p in params["convs"]]
+    return _state_dict_from_tree({"convs": convs, "lins": [t(lin) for lin in params["lins"]]}, net)

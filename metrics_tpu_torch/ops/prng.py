@@ -24,7 +24,7 @@ still below the bound, so on the card each iteration reads the host once,
 as JAX's ``while_loop`` does; :data:`HOST_READS` counts these reads.
 """
 import math
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,25 +38,25 @@ _PARITY = 0x1BD11BDA
 HOST_READS = {"poisson": 0}
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) | (x >> (32 - r))) & _MASK
-
-
 def threefry2x32(
     k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter words ``(x1, x2)``
     under the key ``(k1, k2)``; every argument int64 in [0, 2**32),
-    broadcasting."""
+    broadcasting. The rounds run in place on two words and one scratch
+    buffer."""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
-    x = [(x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK]
+    a, b = torch.broadcast_tensors((x1 + ks[0]) & _MASK, (x2 + ks[1]) & _MASK)
+    a, b = a.contiguous(), b.contiguous()  # fresh storage each: written in place below
+    tmp = torch.empty_like(b)
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x[0] = (x[0] + x[1]) & _MASK
-            x[1] = _rotl(x[1], r) ^ x[0]
-        x[0] = (x[0] + ks[(i + 1) % 3]) & _MASK
-        x[1] = (x[1] + ks[(i + 2) % 3] + (i + 1)) & _MASK
-    return x[0], x[1]
+            a.add_(b).bitwise_and_(_MASK)
+            torch.bitwise_left_shift(b, r, out=tmp)  # b = rotl(b, r) ^ a
+            b.bitwise_right_shift_(32 - r).bitwise_or_(tmp).bitwise_and_(_MASK).bitwise_xor_(a)
+        a.add_(ks[(i + 1) % 3]).bitwise_and_(_MASK)
+        b.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_MASK)
+    return a, b
 
 
 def prng_key(seed: int, device: Optional[Union[str, torch.device]] = None) -> torch.Tensor:
@@ -69,10 +69,22 @@ def prng_key(seed: int, device: Optional[Union[str, torch.device]] = None) -> to
     return key
 
 
-def _hash_iota(key: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Both hashed words of the counters ``0 .. n-1`` under each key of
-    ``key`` (``[..., 2]``): ``[..., n]`` each."""
-    counts = torch.arange(n, dtype=torch.int64, device=key.device)
+#: On the host a large ``normal`` draw runs in chunks of this many values,
+#: and its ``log1p``/``sqrt`` in pieces of ``_VML_GRAIN``: torch runs an
+#: elementwise op on up to 32,768 values, and a vectorized-math one (MKL
+#: VML) on up to 2,048, on the calling thread; above that each op starts a
+#: thread team. With several processes on one host (a test runner's
+#: workers) each of the ~200 ops of a chunk then waited ~40 ms for its team,
+#: and a 24M-value draw (an Inception network) took minutes; in pieces it
+#: takes seconds whatever the neighbours do. The values are the same.
+_HOST_CHUNK = 32768
+_VML_GRAIN = 2048
+
+
+def _hash_iota(key: torch.Tensor, n: int, start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both hashed words of the counters ``start .. start+n-1`` under each
+    key of ``key`` (``[..., 2]``): ``[..., n]`` each."""
+    counts = torch.arange(start, start + n, dtype=torch.int64, device=key.device)
     k1, k2 = key[..., 0:1], key[..., 1:2]
     return threefry2x32(k1, k2, torch.zeros_like(counts), counts)
 
@@ -116,12 +128,20 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                  -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+def _vml(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """``fn(x)`` for a vectorized-math op; on the host in pieces of
+    ``_VML_GRAIN`` values (see ``_HOST_CHUNK``)."""
+    if x.device.type != "cpu" or x.numel() <= _VML_GRAIN:
+        return fn(x)
+    return torch.cat([fn(piece) for piece in x.reshape(-1).split(_VML_GRAIN)]).reshape(x.shape)
+
+
 def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``ErfInv`` for ``|x| < 1``; ``torch.erfinv`` differs from
     it by up to ~65 ulps in the tails."""
-    w = -torch.log1p(-x * x)
+    w = -_vml(torch.log1p, -x * x)
     small = w < 5.0
-    w = torch.where(small, w - 2.5, torch.sqrt(w) - 3.0)
+    w = torch.where(small, w - 2.5, _vml(torch.sqrt, w) - 3.0)
     coeffs = torch.tensor([_ERFINV_SMALL, _ERFINV_LARGE], dtype=torch.float32, device=x.device)
     p = torch.where(small, coeffs[0, 0], coeffs[1, 0])
     for i in range(1, len(_ERFINV_SMALL)):
@@ -132,13 +152,24 @@ def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
 def normal(key: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32 for one key ``[2]``:
     32-bit random bits, their top 23 as the mantissa of a float in [1, 2),
-    minus 1, scaled to ``[nextafter(-1, 0), 1)``, then ``sqrt(2) * erfinv``."""
-    bits = random_bits(key, math.prod(shape))
-    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    minus 1, scaled to ``[nextafter(-1, 0), 1)``, then ``sqrt(2) * erfinv``
+    (in chunks of ``_HOST_CHUNK`` values on the host)."""
+    n = math.prod(shape)
+    if key.device.type == "cpu" and n > _HOST_CHUNK:
+        flat = torch.cat([_normal_flat(key, s, min(_HOST_CHUNK, n - s)) for s in range(0, n, _HOST_CHUNK)])
+    else:
+        flat = _normal_flat(key, 0, n)
+    return flat.reshape(shape)
+
+
+def _normal_flat(key: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Values ``start .. start+n-1`` of a flat float32 normal draw."""
+    bits1, bits2 = _hash_iota(key, n, start)
+    floats = (((bits1 ^ bits2) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
     span = float(np.float32(1.0) - lo)  # 2 - 2**-24 rounds to 2.0 in float32, as in JAX
     u = torch.clamp_min(floats * span + float(lo), float(lo))
-    return (float(np.float32(np.sqrt(2.0))) * _erfinv_f32(u)).reshape(shape)
+    return float(np.float32(np.sqrt(2.0))) * _erfinv_f32(u)
 
 
 def uniform(key: torch.Tensor, n: int) -> torch.Tensor:

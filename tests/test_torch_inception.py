@@ -45,7 +45,9 @@ from metrics_tpu_torch.models.inception import (
     load_torch_inception_weights,
     params_from_jax,
 )
+from metrics_tpu_torch.ops import prng
 from metrics_tpu_torch.utils.device import full_float32
+from tests.helpers.ulps import max_ulps
 
 TAP_RTOL, OP_ATOL, RESIZE_ATOL = 1e-5, 1e-5, 3e-5
 TAPS = ("64", "192", "768", "2048", "logits_unbiased", "logits")
@@ -261,14 +263,28 @@ def test_extractor_checks_and_warnings(port_net):
         InceptionFeatureExtractor(weights=_torchvision_state_dict(port_net, 1008), variant="torchvision", device="cpu")
 
 
-def test_extractor_seeded_weights_are_reproducible():
+def test_default_weights_are_the_reference_draw(jax_params):
+    """``inception_v3_init()`` is the JAX package's ``inception_v3_init(
+    PRNGKey(0))``: the same split tree and shapes, each float32 normal
+    within 4 ulps (XLA's ``ErfInv`` against ``ops/prng.py``'s, C.14)."""
+    got, want = port_inc.inception_v3_init(device="cpu"), params_from_jax(jax_params)
+    assert sorted(got) == sorted(want)
+    worst = max(max_ulps(got[k], want[k]) for k in want)
+    assert worst <= 4, worst
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        a, b = InceptionFeatureExtractor(device="cpu"), InceptionFeatureExtractor(device="cpu")
-    c = InceptionV3(generator=torch.Generator().manual_seed(1))
+        ext = InceptionFeatureExtractor(device="cpu")
+    assert all(torch.equal(v, got[k]) for k, v in ext.net.state_dict().items())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_extractor_seeded_weights_are_reproducible(seed):
+    """One key draws the same network twice, another key another one."""
+    a, b = InceptionV3(key=prng.prng_key(seed)), InceptionV3(key=prng.prng_key(seed))
+    c = InceptionV3(key=prng.prng_key(seed + 2))
     w = "Mixed_6e.branch7x7dbl_4.conv.weight"
-    assert torch.equal(a.net.state_dict()[w], b.net.state_dict()[w])
-    assert not torch.equal(a.net.state_dict()[w], c.state_dict()[w])
+    assert torch.equal(a.state_dict()[w], b.state_dict()[w])
+    assert not torch.equal(a.state_dict()[w], c.state_dict()[w])
 
 
 def test_bfloat16_extractor_tracks_float32():

@@ -26,7 +26,9 @@ import torch
 import metrics_tpu as ref
 from metrics_tpu.models import lpips_net as ref_lpips
 from metrics_tpu_torch import LPIPS
-from metrics_tpu_torch.models.lpips_net import LPIPSNetwork, load_torch_lpips_weights, params_from_jax
+from metrics_tpu_torch.models.lpips_net import LPIPSNetwork, load_torch_lpips_weights, lpips_init, params_from_jax
+from metrics_tpu_torch.ops import prng
+from tests.helpers.ulps import max_ulps
 
 TAP_RTOL, DIST_ATOL = 1e-5, 1e-6
 SIZES = {"alex": 64, "vgg": 32}
@@ -79,6 +81,23 @@ def test_distance_matches_reference(nets, normalize):
     got = port_net(torch.from_numpy(a), torch.from_numpy(b), normalize=normalize)
     assert got.shape == (2,)
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=DIST_ATOL, rtol=0)
+
+
+def test_lpips_init_is_the_reference_draw(nets):
+    """``lpips_init(net, key)`` is the JAX package's ``lpips_init(net, key)``
+    (the fixture's ``PRNGKey(3)``): one split per convolution, then the
+    heads' split, each float32 normal within 4 ulps (C.14); a default
+    AlexNet network is ``lpips_init("alex")``."""
+    net, params, _ = nets
+    got, want = lpips_init(net, prng.prng_key(3), device="cpu"), params_from_jax(params, net)
+    assert sorted(got) == sorted(want)
+    worst = max(max_ulps(got[k], want[k]) for k in want)
+    assert worst <= 4, worst
+    if net == "alex":  # VGG16's draw is six times the size and takes the same path
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            default = LPIPSNetwork(net, device="cpu").state_dict()
+        assert all(torch.equal(v, default[k]) for k, v in lpips_init(net, device="cpu").items())
 
 
 def test_identical_images_are_at_distance_zero(nets):

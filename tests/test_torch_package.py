@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port.
 
-- No module of ``metrics_tpu_torch`` and not ``chip_smoke.py`` imports JAX or
-  anything of the JAX package ``metrics_tpu``: the port keeps its own copies.
+- No module of ``metrics_tpu_torch``, not ``chip_smoke.py`` and no
+  ``examples/torch_*.py`` imports JAX or anything of the JAX package
+  ``metrics_tpu``: the port keeps its own copies.
 - Metrics run on the card by default: without CUDA, a metric constructed
   without ``device="cpu"`` raises instead of quietly running on the host.
 """
@@ -14,7 +15,8 @@ import torch
 import metrics_tpu_torch as port
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "metrics_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path):
@@ -34,7 +36,8 @@ def _forbidden(module):
 
 def test_port_files_are_found():
     names = {p.name for p in PORT_FILES}
-    assert {"metric.py", "binned_stats.py", "chip_smoke.py", "_build.py"} <= names
+    assert {"metric.py", "binned_stats.py", "chip_smoke.py", "_build.py", "torch_sharded_eval.py",
+            "torch_train_loop_integration.py", "torch_bert_score_own_model.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -54,112 +57,25 @@ def test_kernel_sources_ship_with_the_package():
     assert '"metrics_tpu_torch" = ["csrc/*.cu"]' in (ROOT / "pyproject.toml").read_text()
 
 
-DOCTEST_MODULES = [
-    "metrics_tpu_torch.core.collections",
-    "metrics_tpu_torch.core.metric",
-    "metrics_tpu_torch.classification.accuracy",
-    "metrics_tpu_torch.classification.stat_scores",
-    "metrics_tpu_torch.classification.binned_precision_recall",
-    "metrics_tpu_torch.classification.precision_recall",
-    "metrics_tpu_torch.classification.f_beta",
-    "metrics_tpu_torch.classification.specificity",
-    "metrics_tpu_torch.classification.hamming_distance",
-    "metrics_tpu_torch.classification.confusion_matrix",
-    "metrics_tpu_torch.classification.iou",
-    "metrics_tpu_torch.classification.cohen_kappa",
-    "metrics_tpu_torch.classification.matthews_corrcoef",
-    "metrics_tpu_torch.functional.classification.accuracy",
-    "metrics_tpu_torch.functional.classification.stat_scores",
-    "metrics_tpu_torch.functional.classification.precision_recall",
-    "metrics_tpu_torch.functional.classification.f_beta",
-    "metrics_tpu_torch.functional.classification.specificity",
-    "metrics_tpu_torch.functional.classification.hamming_distance",
-    "metrics_tpu_torch.functional.classification.confusion_matrix",
-    "metrics_tpu_torch.functional.classification.iou",
-    "metrics_tpu_torch.functional.classification.cohen_kappa",
-    "metrics_tpu_torch.functional.classification.matthews_corrcoef",
-    "metrics_tpu_torch.functional.classification.dice",
-    "metrics_tpu_torch.core.cat_buffer",
-    "metrics_tpu_torch.core.average",
-    "metrics_tpu_torch.classification.auc",
-    "metrics_tpu_torch.classification.auroc",
-    "metrics_tpu_torch.classification.average_precision",
-    "metrics_tpu_torch.classification.precision_recall_curve",
-    "metrics_tpu_torch.classification.roc",
-    "metrics_tpu_torch.classification.calibration_error",
-    "metrics_tpu_torch.classification.kl_divergence",
-    "metrics_tpu_torch.classification.hinge",
-    "metrics_tpu_torch.functional.classification.auc",
-    "metrics_tpu_torch.functional.classification.auroc",
-    "metrics_tpu_torch.functional.classification.average_precision",
-    "metrics_tpu_torch.functional.classification.precision_recall_curve",
-    "metrics_tpu_torch.functional.classification.roc",
-    "metrics_tpu_torch.functional.classification.calibration_error",
-    "metrics_tpu_torch.functional.classification.kl_divergence",
-    "metrics_tpu_torch.functional.classification.hinge",
-    "metrics_tpu_torch.regression.cosine_similarity",
-    "metrics_tpu_torch.regression.explained_variance",
-    "metrics_tpu_torch.regression.mean_absolute_error",
-    "metrics_tpu_torch.regression.mean_absolute_percentage_error",
-    "metrics_tpu_torch.regression.mean_squared_error",
-    "metrics_tpu_torch.regression.mean_squared_log_error",
-    "metrics_tpu_torch.regression.pearson",
-    "metrics_tpu_torch.regression.r2",
-    "metrics_tpu_torch.regression.r2score",
-    "metrics_tpu_torch.regression.spearman",
-    "metrics_tpu_torch.regression.symmetric_mean_absolute_percentage_error",
-    "metrics_tpu_torch.regression.tweedie_deviance",
-    "metrics_tpu_torch.functional.regression.cosine_similarity",
-    "metrics_tpu_torch.functional.regression.explained_variance",
-    "metrics_tpu_torch.functional.regression.mean_absolute_error",
-    "metrics_tpu_torch.functional.regression.mean_absolute_percentage_error",
-    "metrics_tpu_torch.functional.regression.mean_squared_error",
-    "metrics_tpu_torch.functional.regression.mean_squared_log_error",
-    "metrics_tpu_torch.functional.regression.pearson",
-    "metrics_tpu_torch.functional.regression.r2",
-    "metrics_tpu_torch.functional.regression.r2score",
-    "metrics_tpu_torch.functional.regression.spearman",
-    "metrics_tpu_torch.functional.regression.symmetric_mean_absolute_percentage_error",
-    "metrics_tpu_torch.functional.regression.tweedie_deviance",
-    "metrics_tpu_torch.core.checkpoint",
-    "metrics_tpu_torch.retrieval.collection",
-    "metrics_tpu_torch.retrieval.mean_average_precision",
-    "metrics_tpu_torch.retrieval.mean_reciprocal_rank",
-    "metrics_tpu_torch.retrieval.retrieval_fallout",
-    "metrics_tpu_torch.retrieval.retrieval_ndcg",
-    "metrics_tpu_torch.retrieval.retrieval_precision",
-    "metrics_tpu_torch.retrieval.retrieval_recall",
-    "metrics_tpu_torch.functional.retrieval.average_precision",
-    "metrics_tpu_torch.functional.retrieval.fall_out",
-    "metrics_tpu_torch.functional.retrieval.ndcg",
-    "metrics_tpu_torch.functional.retrieval.precision",
-    "metrics_tpu_torch.functional.retrieval.recall",
-    "metrics_tpu_torch.functional.retrieval.reciprocal_rank",
-    "metrics_tpu_torch.functional.audio.snr",
-    "metrics_tpu_torch.functional.audio.si_sdr",
-    "metrics_tpu_torch.functional.audio.si_snr",
-    "metrics_tpu_torch.functional.audio.pit",
-    "metrics_tpu_torch.audio.snr",
-    "metrics_tpu_torch.audio.si_sdr",
-    "metrics_tpu_torch.audio.si_snr",
-    "metrics_tpu_torch.audio.pit",
-    "metrics_tpu_torch.functional.text.wer",
-    "metrics_tpu_torch.functional.text.bleu",
-    "metrics_tpu_torch.functional.text.rouge",
-    "metrics_tpu_torch.functional.text.bert",
-    "metrics_tpu_torch.functional.nlp",
-    "metrics_tpu_torch.text.wer",
-    "metrics_tpu_torch.text.bleu",
-    "metrics_tpu_torch.text.rouge",
-    "metrics_tpu_torch.text.bert",
-    "metrics_tpu_torch.models.bert",
-    "metrics_tpu_torch.wrappers.bootstrapping",
-    "metrics_tpu_torch.wrappers.tracker",
-    "metrics_tpu_torch.functional.self_supervised",
-]
+def _doctest_modules():
+    """Every port module whose source holds a docstring example (``>>>``),
+    read, not imported."""
+    out = []
+    for path in sorted((ROOT / "metrics_tpu_torch").rglob("*.py")):
+        if ">>>" in path.read_text():
+            parts = path.relative_to(ROOT).with_suffix("").parts
+            out.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return out
 
 
-@pytest.mark.parametrize("module", DOCTEST_MODULES)
+def test_doctest_walk_finds_every_family():
+    found = set(_doctest_modules())
+    assert {"metrics_tpu_torch.core.metric", "metrics_tpu_torch.image.fid", "metrics_tpu_torch.functional.image.ssim",
+            "metrics_tpu_torch.text.bert", "metrics_tpu_torch.models.bert"} <= found
+    assert len(found) >= 110
+
+
+@pytest.mark.parametrize("module", _doctest_modules())
 def test_docstring_examples_run(module):
     import doctest
     import importlib
@@ -287,7 +203,7 @@ def test_load_checkpoint_restores_onto_the_metric_device(tmp_path):
 #: list there.
 NOT_YET = {
     "utils": {"compile_cache": "no twin: the XLA disk cache"},
-    "models": {"inception_v3_apply": "no twin: the nn.Module is the form", "inception_v3_init": "no twin: ditto"},
+    "models": {"inception_v3_apply": "no twin: the nn.Module is the form"},
 }
 SUBPACKAGES = sorted(p.parent.name for p in (ROOT / "metrics_tpu").glob("*/__init__.py")
                      if (ROOT / "metrics_tpu_torch" / p.parent.name / "__init__.py").exists())
@@ -430,3 +346,26 @@ def test_constructor_arguments_match_the_reference():
     assert mc.sync_precision == "int8"
     with pytest.raises(MetricsTPUUserError, match="sync_precision"):
         port.MetricCollection({"a": port.Accuracy(device="cpu")}, sync_precision="fp8")
+
+
+def _reference_top_level():
+    import metrics_tpu
+
+    return sorted(metrics_tpu.__all__)
+
+
+def _parameters(obj):
+    import inspect
+
+    fn = obj.__init__ if inspect.isclass(obj) else obj
+    return [(p.name, p.kind) for p in inspect.signature(fn).parameters.values() if p.name not in ("self", "device")]
+
+
+@pytest.mark.parametrize("name", _reference_top_level())
+def test_top_level_export_takes_the_reference_parameters(name):
+    """Every class and function ``metrics_tpu`` exports takes the JAX
+    package's parameters, by name, kind and order; ``device`` is the
+    port's own (BERTScore has it in both)."""
+    import metrics_tpu
+
+    assert _parameters(getattr(port, name)) == _parameters(getattr(metrics_tpu, name)), name
