@@ -45,7 +45,8 @@ back.
    states, and a binary run (AUROC, AveragePrecision, ROC and
    PrecisionRecallCurve on 2^20 scores with large tie groups) in both modes;
    every state is held against the CPU run, and the two modes against each
-   other;
+   other; then ``CalibrationError`` with a NaN, a +inf and a -inf confidence
+   planted in one batch, multiclass and binary, finite and held to the CPU;
 9. drives the regression collection at NYU Depth v2 test size (MSE, RMSE,
    MAE, MSLE, MAPE, SMAPE, R2Score, ExplainedVariance, PearsonCorrcoef,
    TweedieDevianceScore(power=2)) for 16 ``forward`` steps of 2,457,600
@@ -110,7 +111,8 @@ back.
    WSJ0-2mix and wsj0-3mix test size (3,000 mixtures of 32,000 samples, 30
    steps of 100) and one batch of 8 speakers (the host Hungarian solve),
    against the CPU run (permutations equal wherever the best one leads by
-   more than the values' bound); step ms and idle share;
+   more than the values' bound); step ms and idle share; then ``si_snr`` and
+   ``SI_SNR`` against one step's sources as int64 PCM, held to the CPU;
    compiled: the flagship, the grouped report, the regression, the binned
    collection (B1 inside the graphs) and the 2-speaker audio step, 48 steps
    with ``compiled_update=False`` and 48 with the default (16 eager, then
@@ -844,6 +846,7 @@ def _curves_phase(smi, device):
           f"{results['capacity']['compute_ms']:.4f} vs {results['list']['compute_ms']:.4f} ms, host reads "
           f"(syncs, DtoH) {results['capacity']['syncs']}, {results['capacity']['d2h']} vs "
           f"{results['list']['syncs']}, {results['list']['d2h']}")
+    _nonfinite_calibration(device, probs[0], labels[0])
     del batches, probs, labels
 
     rng = np.random.RandomState(4)
@@ -883,6 +886,35 @@ def _curves_phase(smi, device):
                              CURVE_ATOL if k in ("auroc", "ap") else 0.0) for k in binary_values["list"]}
     print(f"binary capacity mode vs list mode: max abs err {errs}")
     return results
+
+
+def _nonfinite_calibration(device, probs, labels):
+    """CalibrationError with a NaN, a +inf and a -inf confidence planted:
+    one [2048, 1000] batch with them in column 0 of rows 2, 5 and 7, and as
+    binary scores its top-label confidences (the same three planted in rows
+    2, 5 and 7) against the top label's correctness. Each lies in no bin and
+    still counts in N, as in the JAX package (ROADMAP C.27), so every norm
+    is finite; the card against the CPU run within CE_ATOL."""
+    from metrics_tpu_torch import CalibrationError
+
+    nonfinite = torch.tensor([float("nan"), float("inf"), float("-inf")])
+    scores, correct = probs.amax(1), (probs.argmax(1) == labels).to(torch.int64)
+    scores[[2, 5, 7]] = nonfinite
+    probs = probs.clone()
+    probs[[2, 5, 7], 0] = nonfinite
+    forms = {"multiclass": (probs, labels), "binary": (scores, correct)}
+    errs, values = {}, {}
+    for form, (p, t) in forms.items():
+        for norm in ("l1", "l2", "max"):
+            card, cpu = CalibrationError(norm=norm, device=device), CalibrationError(norm=norm, device="cpu")
+            card.update(p.to(device), t.to(device))
+            cpu.update(p, t)
+            got = card.compute()
+            errs[f"{form} {norm}"] = _check_values(f"calibration {form} {norm}", got, cpu.compute(), CE_ATOL)
+            values[f"{form} {norm}"] = float(got)
+    print("calibration with NaN, +inf and -inf confidences planted: "
+          + ", ".join(f"{k} {v:.7f}" for k, v in values.items())
+          + f"; finite, card vs CPU max abs err {max(errs.values()):.3g} (bound {CE_ATOL})")
 
 
 def _depth_data():
@@ -3266,6 +3298,34 @@ def _audio_phase(device):
         est, target = _wsj_step(spk, 0, device)
         _step_profile(lambda: _audio_step(card, est, target), float(np.median(step_ms)), top=4)
         del card, cpu, est, target
+    _integer_target_si_snr(device)
+
+
+def _integer_target_si_snr(device):
+    """SI-SNR of one 2-speaker step's float estimates against its 16-bit PCM
+    sources as integer references (ROADMAP C.28: promoted to float32 before
+    the zero-mean step, as ``jnp.mean`` does): on the card bit-equal to the
+    same references as float32, and within AUDIO_DB_ATOL of the CPU run,
+    value by value and as the ``SI_SNR`` mean."""
+    from metrics_tpu_torch import SI_SNR
+    from metrics_tpu_torch.functional.audio import si_snr
+
+    est, target = _wsj_step(2, 0, device)
+    pcm = (target * 32768).to(torch.int64)  # exact: the sources are 16-bit PCM over 32768
+    got = si_snr(est, pcm)
+    assert torch.equal(got, si_snr(est, pcm.to(torch.float32))), "integer references: not the float32 value"
+    err = _check_values("si_snr, integer references", got, si_snr(est.cpu(), pcm.cpu()), AUDIO_DB_ATOL)
+    card, cpu = SI_SNR(device=device), SI_SNR(device="cpu")
+    card.update(est, pcm)
+    cpu.update(est.cpu(), pcm.cpu())
+    # the mean of the values, each within AUDIO_DB_ATOL, after float32 sums
+    # of log2(n) roundings on either side
+    mean = float(cpu.compute())
+    bound = AUDIO_DB_ATOL + 2 * float(np.log2(got.numel())) * 2.0 ** -24 * abs(mean)
+    mean_err = _check_values("SI_SNR, integer references", card.compute(), cpu.compute(), bound)
+    print(f"si_snr against {tuple(pcm.shape)} int64 PCM references: mean {mean:.4f} dB, equal to the float32 "
+          f"references on the card; card vs CPU max abs err {err:.3g} dB per value, {mean_err:.3g} dB as SI_SNR "
+          f"(bounds {AUDIO_DB_ATOL:.3g}, {bound:.3g})")
 
 
 # ---------------------------------------------------------------------------

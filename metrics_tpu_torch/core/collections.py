@@ -57,6 +57,7 @@ from metrics_tpu_torch.core.compiled import (
     CaptureError,
     CompiledDispatcher,
     Program,
+    compile_stats_view,
     compiled_update_enabled,
     compiled_warmup,
     consult_static,
@@ -80,7 +81,7 @@ from metrics_tpu_torch.core.metric import (
 )
 from metrics_tpu_torch.observability import journal
 from metrics_tpu_torch.observability.diagnostics import warn_once
-from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
+from metrics_tpu_torch.observability.registry import registry_of
 from metrics_tpu_torch.parallel import bucketing
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.parallel.async_sync import drain_round, launch_round, resolve_round, validate_staleness_policy

@@ -60,6 +60,7 @@ __all__ = [
     "TRACE_WARN_ENV",
     "CompiledDispatcher",
     "Program",
+    "compile_stats_view",
     "compiled_update_enabled",
     "compiled_warmup",
     "consult_static",
@@ -106,6 +107,21 @@ def trace_storm_threshold() -> int:
     threshold): every new signature costs a probe, an eager warm-up and a
     capture, and the program cache would grow without bound."""
     return 4 * trace_warn_threshold()
+
+
+def compile_stats_view(stats: Dict[str, Any]) -> Dict[str, Any]:
+    """The public ``compile_stats()`` shape of a ``compile`` domain
+    (``observability/registry.py``): raw counters pass through,
+    ``cache_hits`` is dispatches minus traces, an empty fallback map reads as
+    ``None``."""
+    fallback = stats.get("fallback")
+    return {
+        "traces": stats.get("traces", 0),
+        "dispatches": stats.get("dispatches", 0),
+        "cache_hits": max(stats.get("dispatches", 0) - stats.get("traces", 0), 0),
+        "steps_seen": stats.get("steps_seen", 0),
+        "fallback": dict(fallback) if fallback else None,
+    }
 
 
 # ---------------------------------------------------------------------------

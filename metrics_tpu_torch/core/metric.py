@@ -53,6 +53,7 @@ from metrics_tpu_torch.core.compiled import (
     CaptureError,
     CompiledDispatcher,
     Program,
+    compile_stats_view,
     compiled_update_enabled,
     compiled_warmup,
     consult_static,
@@ -65,7 +66,7 @@ from metrics_tpu_torch.core.compiled import (
     tensor_signature,
 )
 from metrics_tpu_torch.observability import journal
-from metrics_tpu_torch.observability.registry import compile_stats_view, registry_of
+from metrics_tpu_torch.observability.registry import registry_of
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.parallel.bucketing import fused_sync_enabled
 from metrics_tpu_torch.parallel.async_sync import (

@@ -326,17 +326,20 @@ def plan_invalidate(
         )
 
 
-def mark_state_mutated(owner: Any, reason: str = "state-mutated", schema_changed: bool = False) -> None:
+def mark_state_mutated(
+    owner: Any, reason: str = "state-mutated", schema_changed: bool = False, groups_stale: bool = False
+) -> None:
     """Clear the donation latch and notify the plan layer. The notification
-    fires only on an actual ownership transition (the latch was set) or a
-    schema change: re-clearing a clear latch is the eager path's common case
-    and stays two dict operations."""
+    fires only on an actual ownership transition (the latch was set), a
+    schema change or ``groups_stale`` (the compute groups need planning
+    again without a schema change): re-clearing a clear latch is the eager
+    path's common case and stays two dict operations."""
     d = owner.__dict__
     owned = d.get("_donation_ready", False)
     if owned:
         object.__setattr__(owner, "_donation_ready", False)
-    if owned or schema_changed:
-        plan_invalidate(owner, reason, schema_changed=schema_changed)
+    if owned or schema_changed or groups_stale:
+        plan_invalidate(owner, reason, schema_changed=schema_changed, groups_stale=groups_stale)
 
 
 def mark_donation_ready(owner: Any) -> None:

@@ -124,5 +124,9 @@ def pit_permutate(preds: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
         >>> pit_permutate(preds, best_perm)[0, 0].tolist()
         [3.0, 4.0, 5.0]
     """
+    if perm.is_floating_point():
+        raise TypeError(f"take_along_axis indices must be of integer type, got {perm.dtype}")
     index = perm.to(torch.int64).reshape(tuple(perm.shape) + (1,) * (preds.ndim - 2))
+    # a negative index counts from the end, as ``jnp.take_along_axis`` takes it
+    index = torch.where(index < 0, index + preds.shape[1], index)
     return torch.gather(preds, 1, index.expand(preds.shape))

@@ -28,8 +28,13 @@ def snr(preds: torch.Tensor, target: torch.Tensor, zero_mean: bool = False) -> t
         16.1805
     """
     _check_same_shape(preds, target)
-    eps = torch.finfo(preds.dtype).eps
+    # eps in the preds' own width, as the JAX package's typed ``jnp.finfo(...).eps``
+    # (an integer target meets it in half precision there); a 0-d CPU tensor
+    # promotes as a scalar beside a CUDA tensor and launches nothing
+    eps = torch.tensor(torch.finfo(preds.dtype).eps, dtype=preds.dtype)
     if zero_mean:
+        # an integer signal is averaged as a float32 one, as ``jnp.mean`` promotes it
+        target = target if target.is_floating_point() else target.to(torch.float32)
         target = target - torch.mean(target, dim=-1, keepdim=True)
         preds = preds - torch.mean(preds, dim=-1, keepdim=True)
     noise = target - preds

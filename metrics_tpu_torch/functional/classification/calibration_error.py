@@ -34,8 +34,11 @@ def _ce_compute(
     onehot = (idx.unsqueeze(1) == bins.unsqueeze(0)) & (idx >= 0).unsqueeze(1)  # [N, B]
     count_bin = torch.sum(onehot, dim=0).to(torch.float32)
     safe_count = torch.where(count_bin == 0, torch.ones_like(count_bin), count_bin)
-    conf_bin = torch.sum(onehot * confidences.unsqueeze(1), dim=0) / safe_count
-    acc_bin = torch.sum(onehot * accuracies.unsqueeze(1), dim=0) / safe_count
+    # a NaN or infinite confidence lies in no bin and adds 0 to every bin's
+    # sums, as XLA's select does for the JAX package's bool-mask product (a
+    # product would add NaN); it still counts in N below
+    conf_bin = torch.sum(torch.where(onehot, confidences.unsqueeze(1), 0.0), dim=0) / safe_count
+    acc_bin = torch.sum(torch.where(onehot, accuracies.unsqueeze(1), 0.0), dim=0) / safe_count
     prop_bin = count_bin / confidences.shape[0]
     conf_bin = torch.where(count_bin == 0, torch.zeros_like(conf_bin), conf_bin)
     acc_bin = torch.where(count_bin == 0, torch.zeros_like(acc_bin), acc_bin)

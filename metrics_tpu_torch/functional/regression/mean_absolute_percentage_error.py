@@ -13,7 +13,13 @@ def _mean_absolute_percentage_error_update(
     preds: torch.Tensor, target: torch.Tensor, epsilon: float = 1.17e-06
 ) -> Tuple[torch.Tensor, int]:
     _check_same_shape(preds, target)
-    abs_per_error = torch.abs(preds - target) / torch.clamp(torch.abs(target), min=epsilon)
+    abs_diff = torch.abs(preds - target)
+    denominator = torch.abs(target)
+    if not denominator.is_floating_point():
+        # the JAX package clips an integer target with a weakly typed float:
+        # the quotient keeps the float width of ``preds`` (float16 stays float16)
+        denominator = denominator.to(abs_diff.dtype if abs_diff.is_floating_point() else torch.float32)
+    abs_per_error = abs_diff / torch.clamp(denominator, min=epsilon)
     return torch.sum(abs_per_error), target.numel()
 
 

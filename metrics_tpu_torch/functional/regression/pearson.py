@@ -10,6 +10,20 @@ import torch
 from metrics_tpu_torch.utils.checks import _check_same_shape
 
 
+def _floating(x: torch.Tensor) -> torch.Tensor:
+    """An integer input as float32, as ``jnp.mean`` promotes it."""
+    return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _sub(x: torch.Tensor, moment: torch.Tensor) -> torch.Tensor:
+    """``x - moment`` in the dtype the JAX package's promotion of the two
+    gives: an integer target against a float16 moment stays float16, a half
+    batch against a float32 moment becomes float32. Torch would keep a
+    dimensioned tensor's width against a 0-d one."""
+    dtype = torch.promote_types(x.dtype, moment.dtype)
+    return x.to(dtype) - moment.to(dtype)
+
+
 def _pearson_corrcoef_update(
     preds: torch.Tensor,
     target: torch.Tensor,
@@ -26,25 +40,13 @@ def _pearson_corrcoef_update(
     target = target.squeeze()
     if preds.ndim > 1 or target.ndim > 1:
         raise ValueError("Expected both predictions and target to be 1 dimensional tensors.")
-    # integer inputs take part as float32, as jnp.mean and the float
-    # arithmetic of the JAX package promote them
-    if not preds.is_floating_point():
-        preds = preds.to(torch.float32)
-    if not target.is_floating_point():
-        target = target.to(torch.float32)
-
     n_obs = preds.numel()
-    mx_new = (n_prior * mean_x + torch.mean(preds) * n_obs) / (n_prior + n_obs)
-    my_new = (n_prior * mean_y + torch.mean(target) * n_obs) / (n_prior + n_obs)
+    mx_new = (n_prior * mean_x + torch.mean(_floating(preds)) * n_obs) / (n_prior + n_obs)
+    my_new = (n_prior * mean_y + torch.mean(_floating(target)) * n_obs) / (n_prior + n_obs)
     n_new = n_prior + n_obs
-    # a half-precision batch meets float32 moments in float32, as in the JAX
-    # package: torch would keep a dimensioned half tensor half against a
-    # 0-d float32 one (the means above stay in the input's dtype there too)
-    preds = preds.to(torch.promote_types(preds.dtype, mx_new.dtype))
-    target = target.to(torch.promote_types(target.dtype, my_new.dtype))
-    var_x = var_x + torch.sum((preds - mx_new) * (preds - mean_x))
-    var_y = var_y + torch.sum((target - my_new) * (target - mean_y))
-    corr_xy = corr_xy + torch.sum((preds - mx_new) * (target - mean_y))
+    var_x = var_x + torch.sum(_sub(preds, mx_new) * _sub(preds, mean_x))
+    var_y = var_y + torch.sum(_sub(target, my_new) * _sub(target, mean_y))
+    corr_xy = corr_xy + torch.sum(_sub(preds, mx_new) * _sub(target, mean_y))
     return mx_new, my_new, var_x, var_y, corr_xy, n_new
 
 

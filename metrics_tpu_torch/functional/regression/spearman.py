@@ -19,6 +19,8 @@ from metrics_tpu_torch.utils.checks import _check_same_shape
 
 def _rank_data(data: torch.Tensor) -> torch.Tensor:
     """1-based ranks with ties assigned the mean of their rank span."""
+    if data.numel() == 0:  # no tie groups to bound; the mean of no ranks is NaN, as in the JAX package
+        return data.to(data.dtype if data.is_floating_point() else torch.float32)
     flat = data.reshape(1, -1)
     v_sorted, order = torch.sort(flat, dim=-1, stable=True)
     nan = torch.isnan(v_sorted)

@@ -15,6 +15,10 @@ import torch
 
 def _ngram_counts(tokens: Sequence[str], n_gram: int) -> Counter:
     """Counts of every 1..n_gram-gram in the token sequence."""
+    if any(isinstance(token, torch.Tensor) for token in tokens):
+        # a tensor hashes by identity, so its n-grams would never match; the
+        # JAX package's arrays do not hash at all
+        raise TypeError("unhashable type: 'Tensor': BLEU counts n-grams of hashable tokens, such as strings")
     counts: Counter = Counter()
     for order in range(1, n_gram + 1):
         for start in range(len(tokens) - order + 1):

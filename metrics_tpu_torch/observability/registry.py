@@ -13,7 +13,8 @@ log shipper reads the snapshots of both packages.
   as in the JAX package. The tier byte counters (``intra_tier_bytes``,
   ``inter_tier_bytes``, ``inter_tier_bytes_saved``) take what each hop of a
   tiered sync put on the wire (``parallel/bucketing.py``).
-- ``compile`` is what ``compile_stats()`` reads (:func:`compile_stats_view`),
+- ``compile`` is what ``compile_stats()`` reads
+  (``core/compiled.py::compile_stats_view``),
   counted by the compiled hot path (``core/compiled.py``); ``plan`` counts
   the plan store's ``builds`` and ``cache_hits`` taken by this owner, its
   ``invalidations`` by reason, and ``fused_steps`` (``compiled_step``
@@ -44,7 +45,6 @@ __all__ = [
     "StatsRegistry",
     "add_process",
     "bump_process",
-    "compile_stats_view",
     "process_snapshot",
     "registry_of",
     "set_process",
@@ -142,20 +142,6 @@ def process_snapshot() -> Dict[str, Any]:
         snap: Dict[str, Any] = dict(PROCESS)
     snap["channel_suspect"] = bool(channel_is_suspect())
     return snap
-
-
-def compile_stats_view(stats: Dict[str, Any]) -> Dict[str, Any]:
-    """The ``compile_stats()`` shape of a ``compile`` domain: raw counters
-    pass through, ``cache_hits`` is dispatches minus traces, an empty
-    fallback map reads as ``None``."""
-    fallback = stats.get("fallback")
-    return {
-        "traces": stats.get("traces", 0),
-        "dispatches": stats.get("dispatches", 0),
-        "cache_hits": max(stats.get("dispatches", 0) - stats.get("traces", 0), 0),
-        "steps_seen": stats.get("steps_seen", 0),
-        "fallback": dict(fallback) if fallback else None,
-    }
 
 
 def _deep_copy_counters(d: Dict[str, Any]) -> Dict[str, Any]:

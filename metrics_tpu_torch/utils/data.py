@@ -176,3 +176,8 @@ def apply_to_collection(
     if isinstance(data, (list, tuple)):
         return type(data)(recurse(d) for d in data)
     return data
+
+
+def allclose(a: torch.Tensor, b: torch.Tensor, rtol: float = 1e-5, atol: float = 1e-8) -> bool:
+    """``torch.allclose`` as a Python ``bool`` (reads the device once)."""
+    return bool(torch.allclose(a, b, rtol=rtol, atol=atol))

@@ -198,12 +198,36 @@ def test_load_checkpoint_restores_onto_the_metric_device(tmp_path):
 
 # ---- the import surface (ROADMAP C.20) --------------------------------------
 
-#: Names of the JAX subpackages' ``__init__`` the port does not export yet,
-#: each with its reason: items still queued in ROADMAP.md §A and the no-twin
-#: list there.
-NOT_YET = {
-    "utils": {"compile_cache": "no twin: the XLA disk cache"},
-    "models": {"inception_v3_apply": "no twin: the nn.Module is the form"},
+#: Everything of the JAX package the port has no namesake for, each with its
+#: reason (ROADMAP.md §A's no-twin list): a whole module (``"utils.checkpoint"``),
+#: a public name of a module (``"models.bert::bert_apply"``) or a parameter of
+#: a function or constructor (``"models.bert::config_from_params(params)"``).
+#: An entry the port has since gained fails ``test_every_reference_module_*``.
+NO_TWIN = {
+    "integrations": "the nn.Module is the integration: flax's linen wrappers have no torch counterpart",
+    "integrations.flax": "the nn.Module is the integration",
+    "ops.pallas_binned": "the TPU kernel B1: the port's is csrc/binned_stats.cu behind ops/binned_stats.py",
+    "utils.checkpoint": "the orbax path; state_dict is the interop path",
+    "utils.compile_cache": "the XLA disk cache",
+    "utils::compile_cache": "the XLA disk cache",
+    "utils.device_trace": "the port measures with torch.profiler",
+    "utils.data::is_traced": "no JAX tracer: its counterpart is utils/checks.py::_is_concrete (a FakeTensor or a "
+                             "capture's tensor reads no value)",
+    "models::inception_v3_apply": "the nn.Module is the form (InceptionV3.forward)",
+    "models.inception::inception_v3_apply": "the nn.Module is the form (InceptionV3.forward)",
+    "models.bert::bert_apply": "the nn.Module is the form (BertEncoder.forward)",
+    "models.lpips_net::lpips_apply": "the nn.Module is the form (LPIPSNetwork.forward)",
+    "models.bert::config_from_params(params)": "renamed state_dict: it reads a torch state dict in HF's layout, "
+                                               "not a JAX param tree",
+    "models.lpips_net::load_torch_lpips_weights(net)": "renamed model: it loads into an LPIPSNetwork in place "
+                                                       "(which knows its tower), not into params built for a "
+                                                       "tower name",
+    "core.compiled::dispatch_program(states)": "a CUDA-graph program writes its own static state buffers: no "
+                                               "states are passed for donation",
+    "parallel.bucketing::SyncPlan(leaves)": "the by-name leaf map, which no caller of either package reads",
+    "parallel.bucketing::host_sync_state_bucketed(plan)": "the plan comes from the schema-keyed plan store on "
+                                                          "every call (build_sync_plan); no caller of either "
+                                                          "package passes one",
 }
 SUBPACKAGES = sorted(p.parent.name for p in (ROOT / "metrics_tpu").glob("*/__init__.py")
                      if (ROOT / "metrics_tpu_torch" / p.parent.name / "__init__.py").exists())
@@ -219,10 +243,11 @@ def test_every_reference_subpackage_name_imports_from_the_same_path(sub):
     import importlib
 
     mod = importlib.import_module(f"metrics_tpu_torch.{sub}")
-    missing = [n for n in _reference_exports(sub) if n not in NOT_YET.get(sub, {}) and not hasattr(mod, n)]
+    excused = [n for n in _reference_exports(sub) if f"{sub}::{n}" in NO_TWIN]
+    missing = [n for n in _reference_exports(sub) if n not in excused and not hasattr(mod, n)]
     assert missing == [], f"metrics_tpu_torch.{sub} lacks {missing}"
-    stale = [n for n in NOT_YET.get(sub, {}) if hasattr(mod, n)]
-    assert stale == [], f"{stale} are ported now: take them out of NOT_YET"
+    stale = [n for n in excused if hasattr(mod, n)]
+    assert stale == [], f"{stale} are ported now: take them out of NO_TWIN"
     if sub == "utils":
         assert mod.TorchMetricsUserError is mod.MetricsTPUUserError
 
@@ -369,3 +394,97 @@ def test_top_level_export_takes_the_reference_parameters(name):
     import metrics_tpu
 
     assert _parameters(getattr(port, name)) == _parameters(getattr(metrics_tpu, name)), name
+
+
+# ---- every module of the JAX package ----------------------------------------
+
+def _reference_modules():
+    """``(dotted path under the package, source file)`` of every module of
+    ``metrics_tpu``, read, not imported (``pkgutil.walk_packages`` would not
+    enter ``ops/``, a namespace package without an ``__init__``)."""
+    out = []
+    for path in sorted((ROOT / "metrics_tpu").rglob("*.py")):
+        parts = path.relative_to(ROOT / "metrics_tpu").with_suffix("").parts
+        out.append((".".join(parts[:-1] if parts[-1] == "__init__" else parts), path))
+    return out
+
+
+REFERENCE_MODULES = _reference_modules()
+
+
+def _public_api(path):
+    """``{name: parameter names or None}`` of a JAX module, read with ``ast``:
+    its ``__all__`` if it has one, else every top-level definition without a
+    leading underscore, and in a package's ``__init__`` what it imports too.
+    A function's parameters, or a class's ``__init__``'s, ``self`` aside."""
+    tree = ast.parse(path.read_text())
+    found, listed = {}, None
+
+    def params(fn):
+        a = fn.args
+        return [x.arg for x in a.posonlyargs + a.args + a.kwonlyargs + [a.vararg, a.kwarg] if x is not None
+                and x.arg not in ("self", "cls")]
+
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            found[node.name] = params(node)
+        elif isinstance(node, ast.ClassDef):
+            init = next((n for n in node.body if isinstance(n, ast.FunctionDef) and n.name == "__init__"), None)
+            found[node.name] = params(init) if init else None
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                if isinstance(target, ast.Name):
+                    found[target.id] = None
+                    if target.id == "__all__":
+                        listed = [ast.literal_eval(e) for e in node.value.elts]
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            found.update({a.asname or a.name: None for a in node.names})
+    names = listed if listed is not None else [n for n in found if not n.startswith("_")]
+    return {n: found.get(n) for n in names}
+
+
+def _port_parameters(obj):
+    import inspect
+
+    return set(inspect.signature(obj.__init__ if inspect.isclass(obj) else obj).parameters)
+
+
+@pytest.mark.parametrize("module,path", REFERENCE_MODULES, ids=[m or "metrics_tpu" for m, _ in REFERENCE_MODULES])
+def test_every_reference_module_has_its_names_in_the_port(module, path):
+    """Every public name of every JAX module has a namesake in the port's
+    module of the same path, taking every JAX parameter name; ``NO_TWIN``
+    excuses the rest, each with its reason, and fails when the port has
+    gained what it excuses."""
+    import importlib
+
+    port_name = "metrics_tpu_torch" + (f".{module}" if module else "")
+    if module in NO_TWIN:
+        twin = ROOT / "metrics_tpu_torch" / module.replace(".", "/")
+        assert not (twin.is_dir() or twin.with_suffix(".py").exists()), \
+            f"{port_name} exists now: take it out of NO_TWIN"
+        return
+    mod = importlib.import_module(port_name)
+    missing, stale = [], []
+    for name, params in _public_api(path).items():
+        excused = f"{module}::{name}" in NO_TWIN
+        if not hasattr(mod, name):
+            missing += [] if excused else [name]
+            continue
+        stale += [name] if excused else []
+        if params is None or not callable(getattr(mod, name)):
+            continue
+        mine = _port_parameters(getattr(mod, name))
+        for p in params:
+            key = f"{module}::{name}({p})"
+            if p not in mine and key not in NO_TWIN:
+                missing.append(f"{name}({p})")
+            elif p in mine and key in NO_TWIN:
+                stale.append(key)
+    assert missing == [], f"{port_name} lacks {missing}"
+    assert stale == [], f"{stale} are ported now: take them out of NO_TWIN"
+
+
+def test_no_twin_entries_name_reference_modules():
+    modules = {m for m, _ in REFERENCE_MODULES}
+    assert {key.split("::")[0] for key in NO_TWIN} <= modules
+    assert len(modules) >= 160 and {"core.compiled", "utils.data", "ops.pallas_binned"} <= modules
