@@ -19,7 +19,12 @@ back.
    bit): the binned-counts kernel in both its designs, the shared-memory
    histogram and the compare kernel; times both designs, the wrapper and the
    plain versions at the main path's shapes, and counts the device
-   operations of one wrapper call with ``torch.profiler``;
+   operations of one wrapper call with ``torch.profiler``; then the
+   confusion-count kernel at the main path's three shapes (Cityscapes scores
+   [1, 19, 1024, 2048] and labels [1, 1024, 2048] over 19 classes, an
+   ImageNet-1k batch [2000, 1000]) against its plain form and the one-hot
+   composition it replaced, with its time, the composition's, and its bytes
+   bound;
 4. drives the flagship collection, ``Accuracy`` + macro ``StatScores`` over
    10 classes, for 16 ``forward`` steps of [2048, 10] probabilities, then
    ``compute()``, and holds it against the same run on the CPU;
@@ -32,10 +37,13 @@ back.
    [2048, 1000] probabilities, with its compute groups (the default: the four
    stat-score members share one update) and without, and a
    ``CompositionalMetric`` ``2 * (p * r) / (p + r)``; the grouped run is held
-   bit for bit against the ungrouped one, and both against the CPU run;
+   bit for bit against the ungrouped one, and both against the CPU run; each
+   of ConfusionMatrix, MatthewsCorrcoef and CohenKappa launches the
+   confusion-count kernel once a step;
 7. drives the segmentation collection at Cityscapes val resolution (IoU and
    ConfusionMatrix over 19 classes, plus ``dice_score`` per step) for 4 steps
-   of [1, 19, 1024, 2048] probabilities, held against the CPU run;
+   of [1, 19, 1024, 2048] probabilities, held against the CPU run; each of
+   the two launches the confusion-count kernel once a step;
 8. drives the curves collection at ImageNet-1k eval width: ``AUROC`` and
    ``AveragePrecision`` (macro, 1000 classes) with ``with_capacity(49152)``
    and ``CalibrationError(n_bins=15)``, 24 ``update`` steps of [2048, 1000]
@@ -222,6 +230,15 @@ VALUE_ATOL = 1e-6  # float32 values reduced in another order on the card
 # report and segmentation phases: ImageNet-1k eval width, Cityscapes val at
 # full resolution with its 19 evaluation classes
 REPORT_CLASSES, SEG_CLASSES, SEG_STEPS, SEG_HW = 1000, 19, 4, (1024, 2048)
+# the confusion-count kernel at the main path's shapes (the benchmark's
+# Cityscapes scores and labels, its ImageNet-1k batch of 2000): preds shape,
+# classes, scores or labels
+CONFUSION_SHAPES = {
+    "seg-scores": ((1, SEG_CLASSES, *SEG_HW), SEG_CLASSES, "scores"),
+    "seg-labels": ((1, SEG_CLASSES, *SEG_HW), SEG_CLASSES, "labels"),
+    "report-rows": ((2000, REPORT_CLASSES), REPORT_CLASSES, "scores"),
+}
+L2_BYTES = 50 << 20  # H100 SXM
 # kappa = 1 - a / b, with a and b float32 sums over the 1e6 cells of the
 # [1000, 1000] matrix, summed in another order on the card: each sum may move
 # by ~log2(1e6) * 2**-24 = 1.2e-6 of itself, so a / b (about 1) by twice that
@@ -496,6 +513,96 @@ def _bound(n: int, c: int, t: int):
     ops = n * c * float(np.log2(t + 1))
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+
+def _confusion_inputs(shape, classes, form, seed):
+    """(preds, target) pairs made on the card, in copies that together exceed
+    twice the L2, to be used in turn: softmax of standard normal logits with
+    the true class's raised by 3, or their argmax as labels."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    positions = int(np.prod(shape)) // shape[1]
+    one = 8 * positions + (4 * shape[1] * positions if form == "scores" else 8 * positions)
+    out = []
+    for _ in range(max(2, -(-2 * L2_BYTES // one))):
+        target = torch.randint(0, classes, shape[:1] + shape[2:], generator=g, device="cuda")
+        logits = torch.randn(shape, generator=g, device="cuda")
+        logits.scatter_add_(1, target.unsqueeze(1), torch.full_like(target.unsqueeze(1), 3.0, dtype=logits.dtype))
+        probs = torch.softmax(logits, dim=1)
+        del logits
+        out.append((probs if form == "scores" else probs.argmax(1), target))
+    return out
+
+
+def _cycle(fn, batches):
+    """``fn`` as a call without arguments that takes the next batch each time."""
+    state = {"i": 0}
+
+    def call():
+        p, t = batches[state["i"] % len(batches)]
+        state["i"] += 1
+        return fn(p, t)
+
+    return call
+
+
+def _confusion_bound(preds, target, classes):
+    """Least time for the confusion counts: preds and targets read once, and
+    the int64 cells a batch can touch, ``min(s, C*C)``, read and written once."""
+    nbytes = (preds.numel() * preds.element_size() + target.numel() * target.element_size()
+              + 16 * min(target.numel(), classes**2))
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def _confusion_rows():
+    """The confusion-count kernel at ``CONFUSION_SHAPES``, held bit for bit
+    against its plain form and against the one-hot composition it replaced
+    (run as a compiled replay runs it, value checks off), then timed with
+    both: one dict a shape, and the largest count difference."""
+    import importlib
+
+    from metrics_tpu_torch.core.compiled import program_mode
+    from metrics_tpu_torch.ops import confusion_counts
+
+    cm = importlib.import_module("metrics_tpu_torch.functional.classification.confusion_matrix")
+    rows, max_err = {}, 0
+    for seed, (name, (shape, classes, form)) in enumerate(CONFUSION_SHAPES.items()):
+        batches = _confusion_inputs(shape, classes, form, seed)
+        p0, t0 = batches[0]
+
+        def kernel(p, t, classes=classes):
+            return confusion_counts._confusion_counts_kernel(p, t, classes, classes)
+
+        def composed(p, t, classes=classes):
+            with program_mode():
+                return cm._confusion_matrix_update_plain(p, t, classes)
+
+        for p, t in batches[:2]:
+            got, want = kernel(p, t), confusion_counts._confusion_counts_plain(p, t, classes, classes)
+            max_err = max(max_err, int((got - want).abs().max()))
+            assert torch.equal(got, want), f"confusion counts at {name} differ from the plain form"
+            assert torch.equal(got, composed(p, t)), f"confusion counts at {name} differ from the composition"
+            assert int(got.sum()) == t.numel(), f"confusion counts at {name} lost positions"
+        ms, plain_ms = _time_ms(_cycle(kernel, batches)), _time_ms(_cycle(composed, batches))
+        ops, device_ms, op_names = _device_profile(_cycle(kernel, batches))
+        plain_ops, plain_device_ms, _ = _device_profile(_cycle(composed, batches))
+        assert ops is None or ops <= 2, f"a kernel call put {ops} operations on the card: {op_names}"
+        plan = confusion_counts._plan(not p0.is_floating_point(), p0.shape[0], 1 if form == "labels" else shape[1],
+                                      t0.numel() // p0.shape[0], classes, confusion_counts._sm_count(0))
+        bound_ms = _confusion_bound(p0, t0, classes)
+        rows[name] = dict(
+            shape=list(p0.shape), target=list(t0.shape), classes=classes, plan=list(plan), copies=len(batches),
+            ms=ms, device_ms=device_ms, device_ops_per_call=ops, plain_ms=plain_ms, plain_device_ms=plain_device_ms,
+            plain_device_ops_per_call=plain_ops, bound_ms=bound_ms,
+        )
+        share = "not measured" if device_ms is None else f"{100 * bound_ms / device_ms:.2f}% of it"
+        print(f"confusion_counts {name} preds {tuple(p0.shape)} {p0.dtype} target {tuple(t0.shape)} {t0.dtype}, "
+              f"{classes} classes, plan {plan}: kernel {ms:.5f} ms (CUDA events), device {device_ms} ms in {ops} "
+              f"ops {op_names}; composition {plain_ms:.5f} ms, device {plain_device_ms} ms in {plain_ops} ops; "
+              f"bound {bound_ms:.6f} ms (bytes), {share}; equal to the plain form and the composition")
+        del batches
+        torch.cuda.empty_cache()
+    return rows, max_err
 
 
 def _run_collection(make, batches, device, per_step=None):
@@ -4666,7 +4773,7 @@ def main() -> int:
         StatScores,
     )
     from metrics_tpu_torch.functional import dice_score
-    from metrics_tpu_torch.ops import _build, binned_stats
+    from metrics_tpu_torch.ops import _build, binned_stats, confusion_counts
 
     _phase("device")
     smi = subprocess.run(
@@ -4791,6 +4898,7 @@ def main() -> int:
               f"in {ops} ops {op_names}, compare {compare_device_ms} ms in {compare_ops} ops; plain bucket "
               f"{plain_ms:.5f} ms, plain compare {plain_compare_ms:.5f} ms; bound {bound_ms:.6f} ms ({bound_by}), "
               f"{share}; no single PyTorch call computes this")
+    confusion_rows, confusion_err = _confusion_rows()
 
     _phase("flagship collection: Accuracy + StatScores(macro)")
     rng = np.random.RandomState(0)
@@ -4850,9 +4958,14 @@ def main() -> int:
     for name, make in (("grouped", report), ("ungrouped", report_ungrouped)):
         _run_collection(make, (report_probs, report_labels), device)  # warm-up
     # in turns: grouped, ungrouped, ungrouped, grouped; the second of each is kept
+    confusion_counts.KERNEL_LAUNCHES = 0
     for name, make in (("grouped", report), ("ungrouped", report_ungrouped), ("ungrouped", report_ungrouped),
                        ("grouped", report)):
         report_runs[name] = _run_collection(make, (report_probs, report_labels), device)
+    # ConfusionMatrix, MatthewsCorrcoef and CohenKappa: a launch each a step
+    report_launches = confusion_counts.KERNEL_LAUNCHES
+    assert report_launches == 4 * 3 * STEPS, \
+        f"confusion_counts kernel launched {report_launches} times in 4 report runs, expected {4 * 3 * STEPS}"
     mc_gpu, v_gpu, step_ms, compute_ms, _ = report_runs["grouped"]
     mc_ungrouped, v_ungrouped, step_ms_ungrouped, _, _ = report_runs["ungrouped"]
     groups = mc_gpu.compute_group_keys
@@ -4869,7 +4982,8 @@ def main() -> int:
     assert v_gpu["confmat"].shape == (REPORT_CLASSES, REPORT_CLASSES) and mc_gpu["confmat"].confmat.dtype == torch.int64
     print(f"compute groups {groups}; forward step on the card (host clock, after a warm-up run): grouped median "
           f"{np.median(step_ms):.4f} ms (max {max(step_ms):.4f}), ungrouped median {np.median(step_ms_ungrouped):.4f} "
-          f"ms (max {max(step_ms_ungrouped):.4f}); compute {compute_ms:.4f} ms; grouped states and values equal to "
+          f"ms (max {max(step_ms_ungrouped):.4f}); compute {compute_ms:.4f} ms; confusion_counts launches "
+          f"{report_launches} in 4 runs; grouped states and values equal to "
           f"the ungrouped run bit for bit; states equal to the CPU run; max abs err against it {errs}; values "
           + ", ".join(f"{k} {float(v_gpu[k]):.6g}" for k in v_gpu if k != "confmat"))
     report_step_ms = float(np.median(step_ms))
@@ -4912,17 +5026,21 @@ def main() -> int:
         })
 
     _run_collection(segmentation, (seg_probs[:1], seg_labels[:1]), device, dice_score)  # warm-up
+    confusion_counts.KERNEL_LAUNCHES = 0
     mc_gpu, v_gpu, step_ms, compute_ms, dice_gpu = _run_collection(
         segmentation, (seg_probs, seg_labels), device, dice_score)
+    seg_launches = confusion_counts.KERNEL_LAUNCHES  # IoU and ConfusionMatrix: a launch each a step
+    assert seg_launches == 2 * SEG_STEPS, \
+        f"confusion_counts kernel launched {seg_launches} times, expected {2 * SEG_STEPS}"
     mc_cpu, v_cpu, _, _, dice_cpu = _run_collection(segmentation, (seg_probs, seg_labels), "cpu", dice_score)
     _check_states(mc_gpu, mc_cpu)
     errs = {key: _check_values(key, v_gpu[key], v_cpu[key]) for key in v_cpu}
     errs["dice"] = _check_values("dice_score", dice_gpu, dice_cpu)
     assert int(v_gpu["confmat"].sum()) == SEG_STEPS * SEG_HW[0] * SEG_HW[1], "pixels lost from the confusion matrix"
     print(f"step on the card (forward of both + dice_score; host clock, after a warm-up step): median "
-          f"{np.median(step_ms):.4f} ms, max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; states equal to "
-          f"the CPU run; max abs err against it {errs}; mIoU {float(v_gpu['iou']):.6f}, dice "
-          f"{[round(float(d), 6) for d in dice_gpu]}")
+          f"{np.median(step_ms):.4f} ms, max {max(step_ms):.4f} ms; compute {compute_ms:.4f} ms; confusion_counts "
+          f"launches {seg_launches}; states equal to the CPU run; max abs err against it {errs}; "
+          f"mIoU {float(v_gpu['iou']):.6f}, dice {[round(float(d), 6) for d in dice_gpu]}")
     seg_step_ms = float(np.median(step_ms))
     print(f"peak device memory of a step above its inputs: "
           f"{_step_peak_mib(segmentation, (seg_probs[0], seg_labels[0]), device, dice_score):.1f} MiB")
@@ -5056,6 +5174,23 @@ def main() -> int:
         "device_ops_per_call": main["device_ops_per_call"],
         "other_shapes": [dict(v, shape=list(s)) for s, v in timings.items() if s != SLICE_SHAPES[0]],
     }]
+    # one row a main-path shape; launches are those of the collection run at
+    # that shape (segmentation: 2 a step over SEG_STEPS; report: 3 a step
+    # over 4 runs of STEPS)
+    for name, row in confusion_rows.items():
+        kernels.append(dict(
+            name="confusion_counts",
+            route="cuda",
+            source="metrics_tpu_torch/csrc/confusion_counts.cu",
+            replaces="metrics_tpu/functional/classification/confusion_matrix.py:19 (an XLA composition)",
+            launches=report_launches if name.startswith("report") else seg_launches,
+            max_abs_err=confusion_err,
+            bound_by="bytes",
+            library_ms=None,
+            design=row["plan"][0],
+            case=name,
+            **row,
+        ))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -416,9 +416,9 @@ EAGER_STEP = _EagerStep()
 def _launch_counters() -> List[Tuple[Any, str]]:
     """The launch counters of the port's hand-written kernels: a capture
     records a kernel's launch once, and each replay launches it again."""
-    from metrics_tpu_torch.ops import binned_stats
+    from metrics_tpu_torch.ops import binned_stats, confusion_counts
 
-    return [(binned_stats, "KERNEL_LAUNCHES")]
+    return [(binned_stats, "KERNEL_LAUNCHES"), (confusion_counts, "KERNEL_LAUNCHES")]
 
 
 def _clone_leaf(v: Any) -> Any:

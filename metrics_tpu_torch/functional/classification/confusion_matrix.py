@@ -2,13 +2,22 @@
 
 Counterpart of ``metrics_tpu/functional/classification/confusion_matrix.py``.
 Each (target, pred) pair maps to one cell index, and :func:`_bincount` counts
-the indices into a zeroed int64 vector on the device, with no host read.
+the indices into a zeroed int64 vector on the device, with no host read. On
+CUDA the (multi-dim) multi-class count is one kernel launch
+(``ops/confusion_counts.py``), which reads the scores or labels once and
+builds no one-hot.
 """
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_broadcastable, _input_format_classification
+from metrics_tpu_torch.ops.confusion_counts import _confusion_counts_kernel
+from metrics_tpu_torch.utils.checks import (
+    _check_broadcastable,
+    _classification_case,
+    _format_classification,
+    _onehot_width,
+)
 from metrics_tpu_torch.utils.data import _bincount
 from metrics_tpu_torch.utils.enums import DataType
 
@@ -27,11 +36,71 @@ def _confusion_matrix_update(
     inferred from the data instead, as in the JAX package; cell indices that
     then fall outside ``[0, C*C)`` are dropped and the others may land in
     other rows (see :func:`_bincount`).
+
+    A non-empty (multi-dim) multi-class batch with integer targets on CUDA is
+    counted by the ``confusion_counts`` kernel, equal bit for bit to the
+    composition (:func:`_confusion_matrix_composed`), which every other batch
+    takes.
     """
+    preds, target, case, classes = _validated_case(preds, target, num_classes, threshold)
+    if preds.is_cuda and not multilabel:
+        operands = _kernel_operands(preds, target, case, classes, num_classes)
+        if operands is not None:
+            preds, target, width = operands
+            return _confusion_counts_kernel(preds, target, num_classes, width)
+    return _confusion_matrix_composed(preds, target, case, classes, num_classes, threshold, multilabel)
+
+
+def _kernel_operands(
+    preds: torch.Tensor, target: torch.Tensor, case: DataType, classes: Optional[int], num_classes: int
+) -> Optional[Tuple[torch.Tensor, torch.Tensor, int]]:
+    """``(preds, target, width)`` as the ``confusion_counts`` kernel takes
+    them, for a validated non-empty (multi-dim) multi-class pair with integer
+    targets; ``None`` for any other pair. ``width`` is the one-hot width of
+    the composition's formatting."""
+    if (
+        num_classes < 1
+        or case not in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS)
+        or target.numel() == 0
+        or target.is_floating_point()
+        or target.is_complex()
+        or preds.is_complex()
+        or preds.is_floating_point() and preds.dtype not in (torch.float32, torch.float64)
+    ):
+        return None
+    width = _onehot_width(preds, target, classes)
+    if not preds.is_floating_point() and preds.dtype not in (torch.int32, torch.int64):
+        preds = preds.long()
+    if target.dtype not in (torch.int32, torch.int64):
+        target = target.long()
+    return preds.contiguous(), target.contiguous(), width
+
+
+def _validated_case(
+    preds: torch.Tensor, target: torch.Tensor, num_classes: int, threshold: float
+) -> Tuple[torch.Tensor, torch.Tensor, DataType, Optional[int]]:
+    """The pair validated against ``num_classes`` or, where that fails, with
+    the classes inferred: ``(preds, target, case, classes)``, ``classes``
+    being ``num_classes`` or ``None``."""
     try:
-        preds, target, mode = _input_format_classification(preds, target, threshold, num_classes=num_classes)
+        return (*_classification_case(preds, target, threshold, num_classes=num_classes), num_classes)
     except ValueError:
-        preds, target, mode = _input_format_classification(preds, target, threshold)
+        return (*_classification_case(preds, target, threshold), None)
+
+
+def _confusion_matrix_composed(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    case: DataType,
+    classes: Optional[int],
+    num_classes: int,
+    threshold: float,
+    multilabel: bool,
+) -> torch.Tensor:
+    """The count of a validated pair as a composition of tensor ops: the
+    formatting's one-hots, an argmax of each back to a class, the cell index
+    and :func:`_bincount`."""
+    preds, target, mode = _format_classification(preds, target, case, threshold, num_classes=classes)
     if mode not in (DataType.BINARY, DataType.MULTILABEL):
         preds = torch.argmax(preds, dim=1)
         target = torch.argmax(target, dim=1)
@@ -49,6 +118,19 @@ def _confusion_matrix_update(
     if multilabel:
         return bins.reshape(num_classes, 2, 2)
     return bins.reshape(num_classes, num_classes)
+
+
+def _confusion_matrix_update_plain(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    num_classes: int,
+    threshold: float = 0.5,
+    multilabel: bool = False,
+) -> torch.Tensor:
+    """:func:`_confusion_matrix_update` as the composition on any device: the
+    reference that the kernel is held to."""
+    preds, target, case, classes = _validated_case(preds, target, num_classes, threshold)
+    return _confusion_matrix_composed(preds, target, case, classes, num_classes, threshold, multilabel)
 
 
 def _confusion_matrix_compute(confmat: torch.Tensor, normalize: Optional[str] = None) -> torch.Tensor:

@@ -115,7 +115,7 @@ def load_library() -> ctypes.CDLL:
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
             # a build (nvcc, seconds) must never run inside a CUDA graph
             # capture: the compiled path's eager warm-up loads it first
-            raise RuntimeError("the binned_stats kernel library is not loaded yet; load it before a CUDA graph capture")
+            raise RuntimeError("the kernel library is not loaded yet; load it before a CUDA graph capture")
         lib = ctypes.CDLL(str(library_path()))
         fn = lib.binned_stats_launch
         fn.argtypes = [
@@ -131,6 +131,25 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_int,  # rows per block
             ctypes.c_void_p,  # scratch
             ctypes.c_longlong,  # scratch bytes
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        fn = lib.confusion_counts_launch
+        fn.argtypes = [
+            ctypes.c_void_p,  # preds
+            ctypes.c_int,  # preds kind
+            ctypes.c_void_p,  # target
+            ctypes.c_int,  # target kind
+            ctypes.c_longlong,  # n
+            ctypes.c_int,  # c
+            ctypes.c_longlong,  # x
+            ctypes.c_longlong,  # num_classes
+            ctypes.c_longlong,  # width
+            ctypes.c_int,  # design
+            ctypes.c_int,  # lanes
+            ctypes.c_int,  # blocks
+            ctypes.c_int,  # shared
             ctypes.c_void_p,  # out
             ctypes.c_void_p,  # stream
         ]

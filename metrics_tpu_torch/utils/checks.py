@@ -246,6 +246,17 @@ def _check_classification_inputs(
     return case
 
 
+def _onehot_width(preds: torch.Tensor, target: torch.Tensor, num_classes: Optional[int]) -> int:
+    """The width at which :func:`_input_format_classification` one-hot encodes
+    (multi-dim) multi-class labels: the scores' C dim, else ``num_classes``,
+    else the largest label + 1 (two host reads); at least 2."""
+    if _is_floating(preds):
+        return max(2, preds.shape[1])
+    if not num_classes:
+        num_classes = max(int(preds.max()), int(target.max())) + 1
+    return max(2, num_classes)
+
+
 def _input_format_classification(
     preds: torch.Tensor,
     target: torch.Tensor,
@@ -265,10 +276,25 @@ def _input_format_classification(
     - ``multiclass=True`` lifts binary/multi-label to 2-class one-hot form;
       ``multiclass=False`` projects 2-class data down to the positive column.
     """
+    preds, target, case = _classification_case(preds, target, threshold, top_k, num_classes, multiclass, validate)
+    return _format_classification(preds, target, case, threshold, top_k, num_classes, multiclass)
+
+
+def _classification_case(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    validate: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
+    """The first half of :func:`_input_format_classification`: the pair
+    squeezed, half preds in float32, and its case, validated (or, with
+    ``validate=False``, only detected)."""
     preds, target = _input_squeeze(preds, target)
     if preds.dtype in (torch.float16, torch.bfloat16):
         preds = preds.to(torch.float32)
-
     if validate:
         case = _check_classification_inputs(
             preds, target, threshold=threshold, num_classes=num_classes,
@@ -276,7 +302,20 @@ def _input_format_classification(
         )
     else:
         case, _ = _classify_case(preds, target)
+    return preds, target, case
 
+
+def _format_classification(
+    preds: torch.Tensor,
+    target: torch.Tensor,
+    case: DataType,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, DataType]:
+    """The second half of :func:`_input_format_classification`: the pair of
+    :func:`_classification_case` formatted to binary int64 tensors."""
     if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k:
         preds = (preds >= threshold).long()
         num_classes = num_classes if not multiclass else 2
@@ -285,14 +324,9 @@ def _input_format_classification(
         preds = select_topk(preds, top_k)
 
     if case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) or multiclass:
-        if _is_floating(preds):
-            num_classes = preds.shape[1]
-            preds = select_topk(preds, top_k or 1)
-        else:
-            if not num_classes:
-                num_classes = max(int(preds.max()), int(target.max())) + 1
-            preds = to_onehot(preds, max(2, num_classes))
-        target = to_onehot(target, max(2, num_classes))
+        width = _onehot_width(preds, target, num_classes)
+        preds = select_topk(preds, top_k or 1) if _is_floating(preds) else to_onehot(preds, width)
+        target = to_onehot(target, width)
         if multiclass is False:
             preds, target = preds[:, 1, ...], target[:, 1, ...]
 
@@ -314,10 +348,7 @@ def _input_mode(preds: torch.Tensor, target: torch.Tensor) -> DataType:
     """The case ``_input_format_classification(preds, target)`` detects, with
     the same validation, without building the formatted tensors: for
     callers that take only the mode (AUROC, CalibrationError)."""
-    preds, target = _input_squeeze(preds, target)
-    if preds.dtype in (torch.float16, torch.bfloat16):
-        preds = preds.to(torch.float32)
-    return _check_classification_inputs(preds, target, threshold=0.5, num_classes=None, multiclass=None, top_k=None)
+    return _classification_case(preds, target)[2]
 
 
 def _check_retrieval_target_and_prediction_types(
